@@ -1,0 +1,121 @@
+"""Bitfield value types for SSZ ``Bitvector[N]`` / ``Bitlist[N]``.
+
+Little-endian bit indexing over a byte buffer, with the shift/test/set
+operations the consensus core needs (parity with the reference's
+``Utils.BitVector`` — ref: lib/utils/bit_vector.ex:14-94 — but one value type
+shared with the SSZ codec instead of a separate util).
+"""
+
+from __future__ import annotations
+
+__all__ = ["Bits", "Bitvector", "Bitlist"]
+
+
+class Bits:
+    """Fixed-length sequence of bits, little-endian indexed within each byte."""
+
+    __slots__ = ("_buf", "_len")
+
+    def __init__(self, length: int, buf: bytes | bytearray | None = None):
+        if length < 0:
+            raise ValueError("negative bit length")
+        self._len = length
+        nbytes = (length + 7) // 8
+        if buf is None:
+            self._buf = bytearray(nbytes)
+        else:
+            if len(buf) != nbytes:
+                raise ValueError(f"buffer is {len(buf)} bytes, need {nbytes} for {length} bits")
+            self._buf = bytearray(buf)
+            # Bits beyond `length` in the last byte must be zero.
+            if length % 8 and (self._buf[-1] >> (length % 8)):
+                raise ValueError("non-zero padding bits")
+
+    @classmethod
+    def from_bools(cls, bools) -> "Bits":
+        bools = list(bools)
+        b = cls(len(bools))
+        for i, v in enumerate(bools):
+            if v:
+                b._buf[i // 8] |= 1 << (i % 8)
+        return b
+
+    # -- sequence protocol
+    def __len__(self) -> int:
+        return self._len
+
+    def __getitem__(self, i: int) -> bool:
+        if not 0 <= i < self._len:
+            raise IndexError(i)
+        return bool(self._buf[i // 8] >> (i % 8) & 1)
+
+    def __iter__(self):
+        for i in range(self._len):
+            yield self[i]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, Bits):
+            return self._len == other._len and self._buf == other._buf
+        if isinstance(other, (list, tuple)):
+            return list(self) == [bool(x) for x in other]
+        return NotImplemented
+
+    def __hash__(self):
+        return hash((self._len, bytes(self._buf)))
+
+    def __repr__(self) -> str:
+        bits = "".join("1" if b else "0" for b in self)
+        return f"{type(self).__name__}({bits!r})"
+
+    # -- mutation (returns new value; consensus code treats state as immutable)
+    def set(self, i: int, value: bool = True) -> "Bits":
+        if not 0 <= i < self._len:
+            raise IndexError(i)
+        out = type(self)(self._len, bytes(self._buf))
+        if value:
+            out._buf[i // 8] |= 1 << (i % 8)
+        else:
+            out._buf[i // 8] &= ~(1 << (i % 8)) & 0xFF
+        return out
+
+    def shift_higher(self, n: int) -> "Bits":
+        """Shift all bits toward higher indices (ref: bit_vector.ex shift_higher)."""
+        as_int = int.from_bytes(self._buf, "little") << n
+        mask = (1 << self._len) - 1
+        nbytes = (self._len + 7) // 8
+        return type(self)(self._len, (as_int & mask).to_bytes(nbytes, "little"))
+
+    def shift_lower(self, n: int) -> "Bits":
+        as_int = int.from_bytes(self._buf, "little") >> n
+        nbytes = (self._len + 7) // 8
+        return type(self)(self._len, as_int.to_bytes(nbytes, "little"))
+
+    # -- queries
+    def count(self) -> int:
+        return sum(bin(b).count("1") for b in self._buf)
+
+    def any(self) -> bool:
+        return any(self._buf)
+
+    def all_set(self, first_n: int | None = None) -> bool:
+        n = self._len if first_n is None else first_n
+        return all(self[i] for i in range(n))
+
+    def all_set_range(self, start: int, stop: int) -> bool:
+        """True iff bits [start, stop) are all set (justification-bit windows)."""
+        return all(self[i] for i in range(start, stop))
+
+    def indices(self) -> list[int]:
+        """Indices of set bits, ascending."""
+        return [i for i in range(self._len) if self[i]]
+
+    def to_bytes(self) -> bytes:
+        return bytes(self._buf)
+
+
+class Bitvector(Bits):
+    pass
+
+
+class Bitlist(Bits):
+    pass

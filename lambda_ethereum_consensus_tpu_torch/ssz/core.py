@@ -1,0 +1,893 @@
+"""SSZ (SimpleSerialize) type system, codec and Merkleization engine.
+
+This replaces the reference's Rust ``ssz_nif`` (serialize/deserialize/
+hash_tree_root for every container, generic over Mainnet/Minimal configs —
+ref: native/ssz_nif/src/lib.rs:26-153) with one engine that is:
+
+- **config-late-bound**: ``List``/``Vector`` sizes may name a ChainSpec
+  constant (e.g. ``List(Validator, "VALIDATOR_REGISTRY_LIMIT")``) resolved at
+  call time, so a single set of container definitions serves every preset —
+  where the reference duplicates types per config via Rust generics
+  (native/ssz_nif/src/ssz_types/config.rs:15-48).
+- **backend-pluggable for hashing**: Merkleization consumes whole tree levels
+  as ``(N, 64) → (N, 32)`` batches, so large trees (validator registry,
+  balances) dispatch to the CUDA SHA-256 kernel while small trees stay on host.
+
+Value model: ``uintN`` → int, ``boolean`` → bool, byte types → bytes,
+``Vector``/``List`` → list (or numpy fast paths when packing), bitfields →
+:class:`~.bitfields.Bitvector`/:class:`~.bitfields.Bitlist`, containers →
+instances of :class:`Container` subclasses.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import numpy as np
+
+from ..config import ChainSpec, get_chain_spec
+from .bitfields import Bitlist as BitlistValue
+from .bitfields import Bitvector as BitvectorValue
+from .hash import ZERO_HASHES, HashBackend, get_hash_backend, sha256
+
+__all__ = [
+    "SSZType",
+    "Uint",
+    "Boolean",
+    "ByteVector",
+    "ByteList",
+    "Vector",
+    "List",
+    "Bitvector",
+    "Bitlist",
+    "Container",
+    "uint8",
+    "uint16",
+    "uint32",
+    "uint64",
+    "uint128",
+    "uint256",
+    "boolean",
+    "SSZError",
+    "merkleize_chunks",
+    "mix_in_length",
+    "pack_bytes",
+]
+
+BYTES_PER_CHUNK = 32
+OFFSET_SIZE = 4
+
+
+class SSZError(ValueError):
+    """Malformed SSZ input or value outside its type's bounds."""
+
+
+def _resolve(n: int | str | Callable[[ChainSpec], int], spec: ChainSpec) -> int:
+    """Resolve a possibly spec-late-bound size to a concrete int."""
+    if isinstance(n, int):
+        return n
+    if isinstance(n, str):
+        return int(spec[n])
+    return int(n(spec))
+
+
+def mix_in_length(root: bytes, length: int) -> bytes:
+    return sha256(root + length.to_bytes(32, "little"))
+
+
+def pack_bytes(data: bytes) -> np.ndarray:
+    """Right-pad serialized bytes to a whole number of 32-byte chunks."""
+    n = len(data)
+    nchunks = max(1, (n + BYTES_PER_CHUNK - 1) // BYTES_PER_CHUNK)
+    buf = np.zeros(nchunks * BYTES_PER_CHUNK, dtype=np.uint8)
+    buf[:n] = np.frombuffer(data, dtype=np.uint8)
+    return buf.reshape(nchunks, BYTES_PER_CHUNK)
+
+
+def merkleize_chunks(
+    chunks: np.ndarray,
+    limit_chunks: int | None = None,
+    backend: HashBackend | None = None,
+) -> bytes:
+    """Binary Merkle tree root of ``(N, 32)`` chunks, zero-padded to
+    ``next_pow2(limit_chunks)`` leaves per the SSZ spec.
+
+    One backend call per level — the batched shape that the CUDA backend turns
+    into a single kernel launch per level.
+    """
+    backend = backend or get_hash_backend()
+    count = int(chunks.shape[0])
+    limit = count if limit_chunks is None else int(limit_chunks)
+    if count > limit:
+        raise SSZError(f"{count} chunks exceed limit {limit}")
+    depth = max(limit - 1, 0).bit_length()
+    if count == 0:
+        return ZERO_HASHES[depth]
+    level = np.ascontiguousarray(chunks, dtype=np.uint8)
+    # Large trees: reduce the populated subtree in one fused device call,
+    # then extend to the limit depth with precomputed zero-subtree roots.
+    subtree = getattr(backend, "merkle_subtree_root", None)
+    if (
+        subtree is not None
+        and depth > 0
+        and count >= getattr(backend, "tree_threshold", 1 << 62)
+    ):
+        root, sub_depth = subtree(level)
+        for d in range(sub_depth, depth):
+            root = sha256(root + ZERO_HASHES[d])
+        return root
+    for d in range(depth):
+        if level.shape[0] % 2:
+            zrow = np.frombuffer(ZERO_HASHES[d], np.uint8).reshape(1, 32)
+            level = np.concatenate([level, zrow], axis=0)
+        level = backend.hash_level(level.reshape(-1, 64))
+    return level[0].tobytes()
+
+
+class SSZType:
+    """Base descriptor. Subclasses implement the SSZ spec for one type kind."""
+
+    def is_fixed_size(self, spec: ChainSpec) -> bool:
+        raise NotImplementedError
+
+    def fixed_length(self, spec: ChainSpec) -> int:
+        raise NotImplementedError
+
+    def serialize(self, value: Any, spec: ChainSpec | None = None) -> bytes:
+        raise NotImplementedError
+
+    def deserialize(self, data: bytes, spec: ChainSpec | None = None) -> Any:
+        raise NotImplementedError
+
+    def hash_tree_root(
+        self, value: Any, spec: ChainSpec | None = None, backend: HashBackend | None = None
+    ) -> bytes:
+        raise NotImplementedError
+
+    def default(self, spec: ChainSpec | None = None) -> Any:
+        raise NotImplementedError
+
+    # Basic types pack multiple values per chunk.
+    is_basic = False
+
+
+class Uint(SSZType):
+    is_basic = True
+
+    def __init__(self, bits: int):
+        assert bits in (8, 16, 32, 64, 128, 256)
+        self.bits = bits
+        self.size = bits // 8
+
+    def is_fixed_size(self, spec):
+        return True
+
+    def fixed_length(self, spec):
+        return self.size
+
+    def serialize(self, value, spec=None):
+        v = int(value)
+        if not 0 <= v < (1 << self.bits):
+            raise SSZError(f"uint{self.bits} out of range: {v}")
+        return v.to_bytes(self.size, "little")
+
+    def deserialize(self, data, spec=None):
+        if len(data) != self.size:
+            raise SSZError(f"uint{self.bits}: expected {self.size} bytes, got {len(data)}")
+        return int.from_bytes(data, "little")
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        return self.serialize(value).ljust(32, b"\x00")
+
+    def default(self, spec=None):
+        return 0
+
+    def __repr__(self):
+        return f"uint{self.bits}"
+
+
+class Boolean(SSZType):
+    is_basic = True
+    size = 1
+
+    def is_fixed_size(self, spec):
+        return True
+
+    def fixed_length(self, spec):
+        return 1
+
+    def serialize(self, value, spec=None):
+        if value not in (True, False, 0, 1):
+            raise SSZError(f"invalid boolean: {value!r}")
+        return b"\x01" if value else b"\x00"
+
+    def deserialize(self, data, spec=None):
+        if data == b"\x00":
+            return False
+        if data == b"\x01":
+            return True
+        raise SSZError(f"invalid boolean encoding: {data!r}")
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        return self.serialize(value).ljust(32, b"\x00")
+
+    def default(self, spec=None):
+        return False
+
+    def __repr__(self):
+        return "boolean"
+
+
+uint8 = Uint(8)
+uint16 = Uint(16)
+uint32 = Uint(32)
+uint64 = Uint(64)
+uint128 = Uint(128)
+uint256 = Uint(256)
+boolean = Boolean()
+
+
+class ByteVector(SSZType):
+    """``Bytes1`` … ``Bytes96``: fixed-length opaque byte strings."""
+
+    def __init__(self, length: int | str):
+        self.length = length
+
+    def is_fixed_size(self, spec):
+        return True
+
+    def fixed_length(self, spec):
+        return _resolve(self.length, spec)
+
+    def serialize(self, value, spec=None):
+        spec = spec or get_chain_spec()
+        n = _resolve(self.length, spec)
+        b = bytes(value)
+        if len(b) != n:
+            raise SSZError(f"ByteVector[{n}]: got {len(b)} bytes")
+        return b
+
+    def deserialize(self, data, spec=None):
+        spec = spec or get_chain_spec()
+        n = _resolve(self.length, spec)
+        if len(data) != n:
+            raise SSZError(f"ByteVector[{n}]: got {len(data)} bytes")
+        return bytes(data)
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        spec = spec or get_chain_spec()
+        return merkleize_chunks(pack_bytes(self.serialize(value, spec)), backend=backend)
+
+    def default(self, spec=None):
+        spec = spec or get_chain_spec()
+        return b"\x00" * _resolve(self.length, spec)
+
+    def __repr__(self):
+        return f"ByteVector[{self.length}]"
+
+
+class ByteList(SSZType):
+    """Variable-length byte string with a maximum length (e.g. extra_data)."""
+
+    def __init__(self, limit: int | str):
+        self.limit = limit
+
+    def is_fixed_size(self, spec):
+        return False
+
+    def serialize(self, value, spec=None):
+        spec = spec or get_chain_spec()
+        b = bytes(value)
+        if len(b) > _resolve(self.limit, spec):
+            raise SSZError(f"ByteList over limit {self.limit}")
+        return b
+
+    def deserialize(self, data, spec=None):
+        spec = spec or get_chain_spec()
+        if len(data) > _resolve(self.limit, spec):
+            raise SSZError(f"ByteList over limit {self.limit}")
+        return bytes(data)
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        spec = spec or get_chain_spec()
+        b = self.serialize(value, spec)
+        limit_chunks = (_resolve(self.limit, spec) + BYTES_PER_CHUNK - 1) // BYTES_PER_CHUNK
+        chunks = pack_bytes(b) if b else np.zeros((0, 32), np.uint8)
+        return mix_in_length(merkleize_chunks(chunks, limit_chunks, backend), len(b))
+
+    def default(self, spec=None):
+        return b""
+
+    def __repr__(self):
+        return f"ByteList[{self.limit}]"
+
+
+def _pack_basics(elem: Uint | Boolean, values: Sequence, spec: ChainSpec) -> np.ndarray:
+    """Pack a homogeneous basic-type sequence into chunks (numpy fast path)."""
+    if isinstance(elem, Uint) and elem.bits <= 64:
+        try:
+            arr = np.asarray([int(v) for v in values], dtype=np.uint64)
+        except (OverflowError, TypeError) as e:
+            raise SSZError(f"value out of range for {elem!r}: {e}") from None
+        if elem.bits < 64 and len(values) and int(arr.max(initial=0)) >= (1 << elem.bits):
+            raise SSZError(f"value out of range for {elem!r}")
+        data = arr.astype(f"<u{elem.size}").tobytes()
+    elif isinstance(elem, Boolean):
+        if any(v not in (True, False, 0, 1) for v in values):
+            raise SSZError("invalid boolean in sequence")
+        data = bytes(1 if v else 0 for v in values)
+    else:  # uint128/uint256
+        data = b"".join(elem.serialize(v, spec) for v in values)
+    if not data:
+        return np.zeros((0, 32), np.uint8)
+    return pack_bytes(data)
+
+
+def _serialize_elements(elem: SSZType, values: Sequence, spec: ChainSpec) -> bytes:
+    if elem.is_fixed_size(spec):
+        return b"".join(elem.serialize(v, spec) for v in values)
+    parts = [elem.serialize(v, spec) for v in values]
+    offset = OFFSET_SIZE * len(parts)
+    out = bytearray()
+    for p in parts:
+        out += offset.to_bytes(OFFSET_SIZE, "little")
+        offset += len(p)
+    for p in parts:
+        out += p
+    return bytes(out)
+
+
+def _deserialize_elements(elem: SSZType, data: bytes, spec: ChainSpec) -> list:
+    if len(data) == 0:
+        return []
+    if elem.is_fixed_size(spec):
+        size = elem.fixed_length(spec)
+        if size == 0 or len(data) % size:
+            raise SSZError(f"sequence length {len(data)} not a multiple of element size {size}")
+        return [elem.deserialize(data[i : i + size], spec) for i in range(0, len(data), size)]
+    # variable-size elements: offset table
+    first = int.from_bytes(data[:OFFSET_SIZE], "little")
+    if first == 0 or first % OFFSET_SIZE or first > len(data):
+        raise SSZError("bad first offset")
+    count = first // OFFSET_SIZE
+    offsets = [
+        int.from_bytes(data[i * OFFSET_SIZE : (i + 1) * OFFSET_SIZE], "little")
+        for i in range(count)
+    ] + [len(data)]
+    values = []
+    for i in range(count):
+        a, b = offsets[i], offsets[i + 1]
+        if a > b or b > len(data):
+            raise SSZError("offsets not monotonic or out of bounds")
+        values.append(elem.deserialize(data[a:b], spec))
+    return values
+
+
+def _element_roots(elem: SSZType, values: Sequence, spec, backend) -> np.ndarray:
+    batched = _element_roots_batched(elem, values, spec, backend)
+    if batched is not None:
+        return batched
+    roots = np.empty((len(values), 32), np.uint8)
+    for i, v in enumerate(values):
+        roots[i] = np.frombuffer(elem.hash_tree_root(v, spec, backend), np.uint8)
+    return roots
+
+
+def _element_roots_batched(elem, values, spec, backend) -> np.ndarray | None:
+    """Vectorized roots for lists of FLAT fixed-shape containers (every
+    field a Uint/Boolean/ByteVector<=64B — e.g. ``Validator``).
+
+    The naive path merkleizes each element separately: at 1M validators
+    that is ~4M tiny python ``merkleize_chunks``/``hash_level`` calls —
+    host overhead that a batched kernel cannot hide.  Here each FIELD becomes one (N, 32)
+    chunk column via numpy, and each Merkle level of the little
+    per-element trees is ONE ``backend.hash_level`` call over all
+    elements at once — so the device backend sees N*width/2-block
+    batches instead of single pairs."""
+    if not (isinstance(elem, type) and issubclass(elem, Container)):
+        return None
+    schema = elem.__ssz_schema__
+    n = len(values)
+    if n < 64 or not schema:
+        return None  # small lists: the loop is fine and simpler
+    be = backend or get_hash_backend()
+    columns: list[np.ndarray] = []
+    for fname, ftype in schema.items():
+        ftype = _typ(ftype)
+        col = np.zeros((n, 32), np.uint8)
+        if isinstance(ftype, (Uint, Boolean)):
+            size = ftype.size if isinstance(ftype, Uint) else 1
+            if size > 8:
+                return None  # uint128/256 packing not specialized
+            if isinstance(ftype, Boolean):
+                # validate inside the single pass: int() would coerce
+                # values (e.g. 1.5) the loop path's serialize rejects —
+                # validity must not depend on list size
+                def conv(v, _f=fname):
+                    x = getattr(v, _f)
+                    if x not in (True, False, 0, 1):
+                        raise ValueError("invalid boolean")
+                    return int(x)
+
+            else:
+                def conv(v, _f=fname):
+                    return int(getattr(v, _f))
+
+            try:
+                ints = np.fromiter((conv(v) for v in values), np.uint64, count=n)
+            except (OverflowError, TypeError, ValueError):
+                return None  # let the loop path produce the typed error
+            # range bound: Booleans admit only 0/1 (the loop path's
+            # serialize rejects 2..255 — validation must not depend on
+            # whether the list tripped the fast path)
+            bound = 2 if isinstance(ftype, Boolean) else 1 << (8 * size)
+            if n and int(ints.max()) >= bound:
+                return None  # out-of-range: loop path raises SSZError
+            col[:, :8] = ints.astype("<u8").view(np.uint8).reshape(n, 8)
+        elif isinstance(ftype, ByteVector):
+            length = _resolve(ftype.length, spec)
+            if length > 64:
+                return None
+            raws = [bytes(getattr(v, fname)) for v in values]
+            # per-element check: compensating length errors must not
+            # slip through an aggregate-only count
+            if any(len(b) != length for b in raws):
+                return None  # malformed value: let the loop path raise
+            arr = np.frombuffer(b"".join(raws), np.uint8).reshape(n, length)
+            if length <= 32:
+                col[:, :length] = arr
+            else:  # two chunks -> one batched hash level
+                pair = np.zeros((n, 64), np.uint8)
+                pair[:, :length] = arr
+                col = be.hash_level(pair)
+        else:
+            return None
+        columns.append(col)
+    width = 1
+    while width < len(columns):
+        width *= 2
+    mat = np.zeros((n, width, 32), np.uint8)
+    for j, col in enumerate(columns):
+        mat[:, j] = col
+    while width > 1:
+        mat = be.hash_level(mat.reshape(n * width // 2, 64)).reshape(
+            n, width // 2, 32
+        )
+        width //= 2
+    return mat[:, 0]
+
+
+class Vector(SSZType):
+    def __init__(self, elem: SSZType, length: int | str):
+        self.elem = elem
+        self.length = length
+
+    def is_fixed_size(self, spec):
+        return self.elem.is_fixed_size(spec)
+
+    def fixed_length(self, spec):
+        return self.elem.fixed_length(spec) * _resolve(self.length, spec)
+
+    def _check_len(self, value, spec):
+        n = _resolve(self.length, spec)
+        if len(value) != n:
+            raise SSZError(f"Vector[{self.elem!r},{n}]: got {len(value)} elements")
+        return n
+
+    def serialize(self, value, spec=None):
+        spec = spec or get_chain_spec()
+        self._check_len(value, spec)
+        return _serialize_elements(self.elem, value, spec)
+
+    def deserialize(self, data, spec=None):
+        spec = spec or get_chain_spec()
+        values = _deserialize_elements(self.elem, data, spec)
+        self._check_len(values, spec)
+        return values
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        spec = spec or get_chain_spec()
+        self._check_len(value, spec)
+        if self.elem.is_basic:
+            return merkleize_chunks(_pack_basics(self.elem, value, spec), backend=backend)
+        return merkleize_chunks(_element_roots(self.elem, value, spec, backend), backend=backend)
+
+    def default(self, spec=None):
+        spec = spec or get_chain_spec()
+        return [self.elem.default(spec) for _ in range(_resolve(self.length, spec))]
+
+    def __repr__(self):
+        return f"Vector[{self.elem!r},{self.length}]"
+
+
+class List(SSZType):
+    def __init__(self, elem: SSZType, limit: int | str | Callable):
+        self.elem = elem
+        self.limit = limit
+
+    def is_fixed_size(self, spec):
+        return False
+
+    def _check_limit(self, value, spec):
+        limit = _resolve(self.limit, spec)
+        if len(value) > limit:
+            name = getattr(self.elem, "__name__", None) or repr(self.elem)
+            raise SSZError(f"List[{name}] over limit {limit}: {len(value)}")
+        return limit
+
+    def serialize(self, value, spec=None):
+        spec = spec or get_chain_spec()
+        self._check_limit(value, spec)
+        return _serialize_elements(self.elem, value, spec)
+
+    def deserialize(self, data, spec=None):
+        spec = spec or get_chain_spec()
+        values = _deserialize_elements(self.elem, data, spec)
+        self._check_limit(values, spec)
+        return values
+
+    def chunk_limit(self, spec) -> int:
+        limit = _resolve(self.limit, spec)
+        if self.elem.is_basic:
+            return (limit * self.elem.fixed_length(spec) + BYTES_PER_CHUNK - 1) // BYTES_PER_CHUNK
+        return limit
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        spec = spec or get_chain_spec()
+        self._check_limit(value, spec)
+        if self.elem.is_basic:
+            chunks = _pack_basics(self.elem, value, spec)
+        else:
+            chunks = _element_roots(self.elem, value, spec, backend)
+        root = merkleize_chunks(chunks, self.chunk_limit(spec), backend)
+        return mix_in_length(root, len(value))
+
+    def default(self, spec=None):
+        return []
+
+    def __repr__(self):
+        return f"List[{self.elem!r},{self.limit}]"
+
+
+class Bitvector(SSZType):
+    def __init__(self, length: int | str):
+        self.length = length
+
+    def is_fixed_size(self, spec):
+        return True
+
+    def fixed_length(self, spec):
+        return (_resolve(self.length, spec) + 7) // 8
+
+    def _coerce(self, value, n) -> BitvectorValue:
+        try:
+            if isinstance(value, (bytes, bytearray)):
+                value = BitvectorValue(n, value)
+            elif not isinstance(value, BitvectorValue):
+                value = BitvectorValue.from_bools(value)
+        except ValueError as e:
+            raise SSZError(f"Bitvector[{n}]: {e}") from None
+        if len(value) != n:
+            raise SSZError(f"Bitvector[{n}]: got {len(value)} bits")
+        return value
+
+    def serialize(self, value, spec=None):
+        spec = spec or get_chain_spec()
+        n = _resolve(self.length, spec)
+        return self._coerce(value, n).to_bytes()
+
+    def deserialize(self, data, spec=None):
+        spec = spec or get_chain_spec()
+        n = _resolve(self.length, spec)
+        if len(data) != (n + 7) // 8:
+            raise SSZError(f"Bitvector[{n}]: wrong byte length {len(data)}")
+        try:
+            return BitvectorValue(n, data)
+        except ValueError as e:
+            raise SSZError(f"Bitvector[{n}]: {e}") from None
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        spec = spec or get_chain_spec()
+        n = _resolve(self.length, spec)
+        limit_chunks = (n + 255) // 256
+        return merkleize_chunks(pack_bytes(self.serialize(value, spec)), limit_chunks, backend)
+
+    def default(self, spec=None):
+        spec = spec or get_chain_spec()
+        return BitvectorValue(_resolve(self.length, spec))
+
+    def __repr__(self):
+        return f"Bitvector[{self.length}]"
+
+
+class Bitlist(SSZType):
+    def __init__(self, limit: int | str | Callable):
+        self.limit = limit
+
+    def is_fixed_size(self, spec):
+        return False
+
+    def _coerce(self, value) -> BitlistValue:
+        if isinstance(value, BitlistValue):
+            return value
+        return BitlistValue.from_bools(value)
+
+    def serialize(self, value, spec=None):
+        spec = spec or get_chain_spec()
+        bits = self._coerce(value)
+        if len(bits) > _resolve(self.limit, spec):
+            raise SSZError(f"Bitlist over limit {self.limit}")
+        # sentinel bit marks the length
+        as_int = int.from_bytes(bits.to_bytes(), "little") | (1 << len(bits))
+        return as_int.to_bytes(len(bits) // 8 + 1, "little")
+
+    def deserialize(self, data, spec=None):
+        spec = spec or get_chain_spec()
+        if not data:
+            raise SSZError("empty bitlist encoding")
+        as_int = int.from_bytes(data, "little")
+        if as_int == 0:
+            raise SSZError("bitlist missing sentinel bit")
+        n = as_int.bit_length() - 1
+        if n > _resolve(self.limit, spec):
+            raise SSZError(f"Bitlist over limit {self.limit}")
+        if len(data) != n // 8 + 1:
+            raise SSZError("bitlist has trailing zero bytes")
+        payload = as_int ^ (1 << n)
+        try:
+            return BitlistValue(n, payload.to_bytes((n + 7) // 8, "little"))
+        except ValueError as e:
+            raise SSZError(f"Bitlist: {e}") from None
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        spec = spec or get_chain_spec()
+        bits = self._coerce(value)
+        if len(bits) > _resolve(self.limit, spec):
+            raise SSZError(f"Bitlist over limit {self.limit}")
+        limit_chunks = (_resolve(self.limit, spec) + 255) // 256
+        chunks = pack_bytes(bits.to_bytes()) if len(bits) else np.zeros((0, 32), np.uint8)
+        return mix_in_length(merkleize_chunks(chunks, limit_chunks, backend), len(bits))
+
+    def default(self, spec=None):
+        return BitlistValue(0)
+
+    def __repr__(self):
+        return f"Bitlist[{self.limit}]"
+
+
+class ContainerMeta(type):
+    """Collects SSZ field descriptors from class annotations into a schema."""
+
+    def __new__(mcls, name, bases, ns):
+        cls = super().__new__(mcls, name, bases, ns)
+        schema: dict[str, SSZType] = {}
+        for base in reversed(cls.__mro__[1:]):
+            schema.update(getattr(base, "__ssz_schema__", {}))
+        for fname, ftype in ns.get("__annotations__", {}).items():
+            if isinstance(ftype, SSZType) or (isinstance(ftype, type) and issubclass(ftype, Container)):
+                schema[fname] = ftype
+            elif not fname.startswith("_"):
+                # A dropped field would silently change the wire layout and
+                # every Merkle root — fail at class definition instead.
+                raise TypeError(
+                    f"{name}.{fname}: annotation {ftype!r} is not an SSZ type "
+                    "(string annotations — e.g. from `from __future__ import "
+                    "annotations` — are not supported in container modules)"
+                )
+        cls.__ssz_schema__ = schema
+        return cls
+
+
+class Container(SSZType, metaclass=ContainerMeta):
+    """SSZ container: subclass and declare fields as annotations.
+
+    The class doubles as the type descriptor and the value type — methods on
+    instances (``.hash_tree_root()``, ``.encode()``) call the classmethod codec
+    with ``self``, giving the ergonomic surface of the reference's
+    ``Ssz.to_ssz/1`` / ``Ssz.hash_tree_root/1`` (ref: lib/ssz.ex:8-90).
+    """
+
+    __ssz_schema__: dict[str, SSZType] = {}
+
+    def __init__(self, **kwargs):
+        schema = type(self).__ssz_schema__
+        unknown = set(kwargs) - set(schema)
+        if unknown:
+            raise TypeError(f"{type(self).__name__}: unknown fields {sorted(unknown)}")
+        for fname, ftype in schema.items():
+            if fname in kwargs:
+                object.__setattr__(self, fname, kwargs[fname])
+            else:
+                object.__setattr__(self, fname, _typ(ftype).default())
+
+    # Containers are compared/updated functionally (immutable-ish).
+    def __setattr__(self, k, v):
+        raise AttributeError(
+            f"{type(self).__name__} is immutable; use .copy({k}=...) instead"
+        )
+
+    def copy(self, **updates) -> "Container":
+        fields = {f: getattr(self, f) for f in type(self).__ssz_schema__}
+        fields.update(updates)
+        out = object.__new__(type(self))
+        for k, v in fields.items():
+            object.__setattr__(out, k, v)
+        return out
+
+    def __eq__(self, other):
+        if type(self) is not type(other):
+            return NotImplemented
+        return all(
+            getattr(self, f) == getattr(other, f) for f in type(self).__ssz_schema__
+        )
+
+    def __hash__(self):
+        # Cached per (spec, instance): containers are immutable by contract
+        # (in-place mutation of nested lists is unsupported; use .copy()).
+        spec = get_chain_spec()
+        cache = self.__dict__.setdefault("_root_cache", {})
+        root = cache.get(spec.name)
+        if root is None:
+            root = cache[spec.name] = self.hash_tree_root(spec)
+        return hash(root)
+
+    def __repr__(self):
+        inner = ", ".join(f"{f}={getattr(self, f)!r}" for f in type(self).__ssz_schema__)
+        return f"{type(self).__name__}({inner})"
+
+    # -- SSZType protocol (operating on instances of this class)
+    @classmethod
+    def fields(cls) -> dict[str, SSZType]:
+        return dict(cls.__ssz_schema__)
+
+    @classmethod
+    def is_fixed_size(cls, spec=None):
+        spec = spec or get_chain_spec()
+        return all(_typ(t).is_fixed_size(spec) for t in cls.__ssz_schema__.values())
+
+    @classmethod
+    def fixed_length(cls, spec=None):
+        spec = spec or get_chain_spec()
+        return sum(_typ(t).fixed_length(spec) for t in cls.__ssz_schema__.values())
+
+    @classmethod
+    def serialize(cls, value, spec=None):
+        spec = spec or get_chain_spec()
+        fixed_parts: list[bytes | None] = []
+        variable_parts: list[bytes] = []
+        for fname, ftype in cls.__ssz_schema__.items():
+            t = _typ(ftype)
+            v = getattr(value, fname)
+            if t.is_fixed_size(spec):
+                fixed_parts.append(t.serialize(v, spec))
+            else:
+                fixed_parts.append(None)
+                variable_parts.append(t.serialize(v, spec))
+        fixed_len = sum(OFFSET_SIZE if p is None else len(p) for p in fixed_parts)
+        out = bytearray()
+        offset = fixed_len
+        vi = iter(variable_parts)
+        for p in fixed_parts:
+            if p is None:
+                out += offset.to_bytes(OFFSET_SIZE, "little")
+                offset += len(next(vi))
+            else:
+                out += p
+        for p in variable_parts:
+            out += p
+        return bytes(out)
+
+    @classmethod
+    def deserialize(cls, data, spec=None):
+        spec = spec or get_chain_spec()
+        data = bytes(data)
+        fixed_sizes: list[int | None] = []
+        for ftype in cls.__ssz_schema__.values():
+            t = _typ(ftype)
+            fixed_sizes.append(t.fixed_length(spec) if t.is_fixed_size(spec) else None)
+        fixed_len = sum(OFFSET_SIZE if s is None else s for s in fixed_sizes)
+        if len(data) < fixed_len:
+            raise SSZError(f"{cls.__name__}: truncated ({len(data)} < {fixed_len})")
+        # first pass: slice fixed parts, collect offsets
+        pos = 0
+        slices: list[tuple[str, bytes | None]] = []
+        offsets: list[int] = []
+        for (fname, ftype), size in zip(cls.__ssz_schema__.items(), fixed_sizes):
+            if size is None:
+                offsets.append(int.from_bytes(data[pos : pos + OFFSET_SIZE], "little"))
+                slices.append((fname, None))
+                pos += OFFSET_SIZE
+            else:
+                slices.append((fname, data[pos : pos + size]))
+                pos += size
+        if offsets:
+            if offsets[0] != fixed_len:
+                raise SSZError(f"{cls.__name__}: first offset {offsets[0]} != fixed size {fixed_len}")
+            bounds = offsets + [len(data)]
+            for a, b in zip(bounds, bounds[1:]):
+                if a > b or b > len(data):
+                    raise SSZError(f"{cls.__name__}: invalid offsets")
+        elif len(data) != fixed_len:
+            raise SSZError(f"{cls.__name__}: {len(data) - fixed_len} trailing bytes")
+        # second pass: decode
+        kwargs = {}
+        oi = 0
+        for (fname, ftype), (fname2, chunk) in zip(cls.__ssz_schema__.items(), slices):
+            t = _typ(ftype)
+            if chunk is None:
+                a = offsets[oi]
+                b = offsets[oi + 1] if oi + 1 < len(offsets) else len(data)
+                kwargs[fname] = t.deserialize(data[a:b], spec)
+                oi += 1
+            else:
+                kwargs[fname] = t.deserialize(chunk, spec)
+        return cls(**kwargs)
+
+    @classmethod
+    def _hash_tree_root_of(cls, value, spec=None, backend=None):
+        spec = spec or get_chain_spec()
+        roots = np.empty((len(cls.__ssz_schema__), 32), np.uint8)
+        for i, (fname, ftype) in enumerate(cls.__ssz_schema__.items()):
+            r = _typ(ftype).hash_tree_root(getattr(value, fname), spec, backend)
+            roots[i] = np.frombuffer(r, np.uint8)
+        return merkleize_chunks(roots, backend=backend)
+
+    @classmethod
+    def default(cls, spec=None):
+        return cls()
+
+    # -- instance ergonomics
+    def encode(self, spec=None) -> bytes:
+        return type(self).serialize(self, spec)
+
+    @classmethod
+    def decode(cls, data: bytes, spec=None):
+        return cls.deserialize(data, spec)
+
+    def hash_tree_root(self, spec=None, backend=None) -> bytes:  # type: ignore[override]
+        return type(self)._hash_tree_root_of(self, spec, backend)
+
+
+class _ContainerAdapter(SSZType):
+    """Wraps a Container class so it fits the descriptor protocol uniformly."""
+
+    __slots__ = ("cls",)
+
+    def __init__(self, cls):
+        self.cls = cls
+
+    def is_fixed_size(self, spec):
+        return self.cls.is_fixed_size(spec)
+
+    def fixed_length(self, spec):
+        return self.cls.fixed_length(spec)
+
+    def serialize(self, value, spec=None):
+        return self.cls.serialize(value, spec)
+
+    def deserialize(self, data, spec=None):
+        return self.cls.deserialize(data, spec)
+
+    def hash_tree_root(self, value, spec=None, backend=None):
+        return self.cls._hash_tree_root_of(value, spec, backend)
+
+    def default(self, spec=None):
+        return self.cls()
+
+    def __repr__(self):
+        return self.cls.__name__
+
+
+_adapters: dict[type, _ContainerAdapter] = {}
+
+
+def _typ(t) -> SSZType:
+    """Normalize a schema entry (descriptor instance or Container class)."""
+    if isinstance(t, SSZType):
+        return t
+    if isinstance(t, type) and issubclass(t, Container):
+        ad = _adapters.get(t)
+        if ad is None:
+            ad = _adapters[t] = _ContainerAdapter(t)
+        return ad
+    raise TypeError(f"not an SSZ type: {t!r}")
