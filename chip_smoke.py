@@ -4,17 +4,30 @@
 
 Phases (any mismatch or exception ends the run with a nonzero exit):
 
-1. the card's name and power limit, and the kernels built from ``csrc/``;
+1. the card's name and power limit, and the kernels built from ``csrc/``
+   (one ``nvcc`` per source, all started together);
 2. every kernel against its plain PyTorch version on the card, bit for bit,
-   at the main path's shapes, plus a hashlib sample; kernel and plain
-   version timed with CUDA events;
-3. the slice: ``BeaconState.hash_tree_root`` of a mainnet-preset state with
-   1,000,000 seeded validators through ``install_device_backend()``, cold and
-   warm, each equal to the hashlib root of the same state, with the kernel's
-   launch count read around each root;
-4. one JSON line of per-kernel numbers, then the device line last.
+   at the main paths' shapes (SHA-256 nodes, and the three field kernels at
+   1, 7, 1024 and 1,048,576 lanes with the edge values 0, 1 and p-1 and a
+   broadcast (32, 1) operand), plus a hashlib sample; kernels and plain
+   versions timed with CUDA events;
+3. the state-root leg: ``BeaconState.hash_tree_root`` of a mainnet-preset
+   state with 1,000,000 seeded validators through
+   ``install_device_backend()``, cold and warm, each equal to the hashlib
+   root, with the SHA-256 launch count read around each root;
+4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
+   (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
+   524,288-validator registry and its epoch committee cache, through
+   ``batch_verify_each_cached``, cold and warm, every verdict equal to the
+   construction, with the field kernels' launch counts read around each
+   drain; a second drain with one aggregate signed by the wrong key, whose
+   bisection must blame exactly that entry; two committees' device sums
+   against the host sums of their members; and a small sub-drain against
+   the host ``pairing_check`` oracle;
+5. one JSON line of per-kernel numbers, then the device line last.
 
 Needs one card, ``nvcc`` and ``cuobjdump``; exits nonzero without a card.
+Longer records land in ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -36,6 +49,14 @@ SEED = 20261016
 N_VALIDATORS = 1_000_000
 CHECK_SIZES = (1, 7, 255, 1000, 1 << 20)
 TIMED_SIZES = (1 << 20, 8_000_000)
+FQ_SIZES = (1, 7, 1024, 1 << 20)
+FQ_KERNELS = ("mul_mod", "add_mod", "sub_mod")
+# the drain of scripts/bench_chain.py:60-67 (BASELINE.json "128 Attestations
+# x 2048-validator committees"): 2 x 127 messages x 16 aggregates
+N_COMMITTEES, COMMITTEE = 256, 2048
+INSTANCES, GROUPS, AGGS = 2, 127, 16
+# the Pallas kernel bodies the field kernels replace
+_REPLACES = {"mul_mod": "127", "add_mod": "108", "sub_mod": "116"}
 
 # H100 SXM, from the data sheet and the Hopper white paper: HBM3 rate, SMs,
 # INT32 lanes per SM (the ALU pipe) and thread-instructions an SM can issue
@@ -45,11 +66,15 @@ HBM_BYTES_PER_S = 3.35e12
 SMS = 132
 INT32_LANES_PER_SM = 64
 DISPATCH_LANES_PER_SM = 128
+FMA_LANES_PER_SM = 64
 # SASS opcodes that run only on the INT32 ALU pipe
 _ALU_OPCODES = {
     "IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL", "SHR",
     "PRMT", "LEA", "ISETP", "SEL", "IMNMX", "BMSK", "IABS", "POPC", "FLO", "BREV",
 }
+# integer multiplies, which issue on the FMA pipe (64 lanes per SM per clock
+# for 32-bit IMAD on compute capability 9.0)
+_FMA_OPCODES = {"IMAD", "IMUL"}
 
 
 def _smi(query: str) -> str:
@@ -91,10 +116,13 @@ def _sass_opcodes(lib: Path, kernel: str) -> Counter:
 
 
 def _op_ms(opcodes: Counter, n: int, clock_mhz: float) -> float:
-    """Least time for ``n`` hashes by instruction issue: the ALU-pipe
-    instructions over 64 lanes per SM, all of them over 128."""
+    """Least time for ``n`` threads of straight-line code by instruction
+    issue: the ALU-pipe instructions over 64 lanes per SM, the integer
+    multiplies over 64 (the FMA pipe), all of them over 128."""
     alu = sum(c for op, c in opcodes.items() if op in _ALU_OPCODES)
-    lane_clocks = max(alu / INT32_LANES_PER_SM, sum(opcodes.values()) / DISPATCH_LANES_PER_SM)
+    fma = sum(c for op, c in opcodes.items() if op in _FMA_OPCODES)
+    lane_clocks = max(alu / INT32_LANES_PER_SM, fma / FMA_LANES_PER_SM,
+                      sum(opcodes.values()) / DISPATCH_LANES_PER_SM)
     return lane_clocks * n / (SMS * clock_mhz * 1e6) * 1e3
 
 
@@ -210,6 +238,260 @@ class _TimedBackend:
             self.seconds += time.perf_counter() - t
 
 
+def _fq_operands(rng, n: int, dev, edges: list[int]):
+    """(32, n) canonical limb planes: random values below 0x1A0 * 2^372 (< p)
+    with ``edges`` written into the first columns."""
+    import torch
+
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint as BI
+
+    x = rng.integers(0, 1 << BI.LIMB_BITS, (BI.NLIMBS, n), dtype=np.int32)
+    x[-1] %= 0x1A0
+    for i, v in enumerate(edges[:n]):
+        x[:, i] = BI.to_limbs(v)
+    return torch.from_numpy(x).to(dev)
+
+
+def check_fq_kernels(dev, rng) -> tuple[int, dict]:
+    """Each field kernel against its plain version on the card, bit for bit,
+    at FQ_SIZES lanes with edge values and a broadcast (32, 1) operand; then
+    kernel and plain version timed at 1 M lanes.  Returns (max abs error,
+    {name: timings})."""
+    import torch
+
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.fields import P
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+
+    max_err = 0
+    edges_a = [0, 1, P - 1, P - 1, 1, 0, P - 1]
+    edges_b = [P - 1, 1, P - 1, 0, P - 1, 0, 1]
+    for n in FQ_SIZES:
+        a = _fq_operands(rng, n, dev, edges_a if n > 1 else [P - 1])
+        b = _fq_operands(rng, n, dev, edges_b if n > 1 else [P - 1])
+        const = _fq_operands(rng, 1, dev, [])
+        for name in FQ_KERNELS:
+            for rhs, tag in ((b, "full"), (const, "(32, 1)")):
+                got = getattr(BP, name)(a, rhs)
+                plain = BP._PLAIN[name](a, rhs)
+                torch.cuda.synchronize()
+                err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
+                max_err = max(max_err, err)
+                if err or not torch.equal(got, plain):
+                    raise AssertionError(f"{name} kernel != plain version at N={n}, {tag} operand")
+        print(f"field kernels == plain versions at N={n} (edge values, broadcast (32, 1) operand)")
+        del a, b
+    timings = {}
+    n = FQ_SIZES[-1]
+    a = _fq_operands(rng, n, dev, edges_a)
+    b = _fq_operands(rng, n, dev, edges_b)
+    for name in FQ_KERNELS:
+        kernel = getattr(BP, name)
+        plain = BP._PLAIN[name]
+        timings[name] = dict(
+            kernel_ms=_event_ms(lambda: kernel(a, b), reps=20),
+            plain_ms=_event_ms(lambda: plain(a, b), reps=3, warmup=1),
+            byte_ms=3 * 128 * n / HBM_BYTES_PER_S * 1e3,
+        )
+    del a, b
+    torch.cuda.empty_cache()
+    return max_err, timings
+
+
+def build_registry(rng):
+    """The bench's registry: 64 known secret keys cycled over
+    N_COMMITTEES x COMMITTEE validators, committees a seeded permutation."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_batch as BB
+
+    n_vals = N_COMMITTEES * COMMITTEE
+    base_sks = np.arange(3, 67, dtype=np.int64)
+    base_pts = [C.g1.multiply_raw(C.G1_GENERATOR, int(k)) for k in base_sks]
+    bx, by = BB._g1_planes(base_pts)
+    cyc = np.arange(n_vals) % len(base_sks)
+    rx, ry = np.ascontiguousarray(bx[:, cyc]), np.ascontiguousarray(by[:, cyc])
+    committees = rng.permutation(n_vals).reshape(N_COMMITTEES, COMMITTEE)
+    return base_pts, base_sks[cyc], rx, ry, committees
+
+
+def build_drain(rng, sks, committees, mmax: int):
+    """The bench's drain: INSTANCES x GROUPS messages, AGGS aggregates each,
+    participation drawn from [90 %, 100 %]; each aggregate signature is
+    H(m) * (sum of its participants' keys).  Returns (entries, aggregate
+    secret keys, message points, hashing seconds)."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import (
+        DST_POP, hash_to_g2_many,
+    )
+
+    n_msgs = INSTANCES * GROUPS
+    a_total = n_msgs * AGGS
+    comm_sk = sks[committees].sum(axis=1)
+    comm_ids = np.repeat(np.arange(n_msgs) % N_COMMITTEES, AGGS)
+    miss_counts = rng.integers(0, COMMITTEE // 10 + 1, size=a_total)
+    assert miss_counts.max() <= mmax
+    missing, agg_sk = [], []
+    for j in range(a_total):
+        miss = rng.choice(committees[comm_ids[j]], size=int(miss_counts[j]), replace=False)
+        missing.append([int(v) for v in miss])
+        agg_sk.append(int(comm_sk[comm_ids[j]] - sks[miss].sum()))
+    msgs = [b"chip-smoke drain msg %d" % g for g in range(n_msgs)]
+    t0 = time.perf_counter()
+    h_points = hash_to_g2_many(msgs, DST_POP)
+    hash_s = time.perf_counter() - t0
+    entries = [
+        (int(comm_ids[j]), missing[j], msgs[j // AGGS],
+         C.g2.multiply_raw(h_points[j // AGGS], agg_sk[j]))
+        for j in range(a_total)
+    ]
+    return entries, agg_sk, h_points, hash_s
+
+
+def _zero_fq_launches():
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+
+    for name in BP.kernel_launches:
+        BP.kernel_launches[name] = 0
+
+
+def _device_busy_ms(prof) -> float | None:
+    """Sum of device time of the CUDA events in a profile, or None when the
+    profiler recorded none."""
+    import torch
+
+    total = 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        total += us
+    return total / 1e3 if total else None
+
+
+def bls_phase(dev, rng, record: dict) -> dict:
+    """Phase 4: the attestation drain on the card; returns the field
+    kernels' launches per drain."""
+    import torch
+
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.batch import batch_verify_each_cached
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.pairing import pairing_check
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_batch as BB
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base_pts, sks, rx, ry, committees = build_registry(rng)
+    registry_s = time.perf_counter() - t0
+    rx_d, ry_d = torch.from_numpy(rx).to(dev), torch.from_numpy(ry).to(dev)
+    print(f"registry: {rx.shape[1]} validators as (32, N) int32 planes, "
+          f"{2 * rx_d.numel() * 4 / 1e6:.1f} MB on the card, packed in {registry_s:.1f} s")
+    cache_s = []
+    for _ in ("cold", "warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = BB.DeviceCommitteeCache((rx_d, ry_d), committees, device=dev, chunk=256)
+        torch.cuda.synchronize()
+        cache_s.append(time.perf_counter() - t0)
+    print(f"committee cache ({N_COMMITTEES} x {COMMITTEE}, chunk 256) built in "
+          f"{cache_s[0]:.3f} s cold, {cache_s[1]:.3f} s warm; mmax {cache.mmax}")
+
+    # two committees' device sums against the host sums of their members
+    for c in (0, 1):
+        want = None
+        for v in committees[c]:
+            want = C.g1.affine_add(want, base_pts[int(v) % len(base_pts)])
+        got = (BP.from_planes(cache.sum_x[:, c].cpu().numpy())[0],
+               BP.from_planes(cache.sum_y[:, c].cpu().numpy())[0])
+        if got != want:
+            raise AssertionError(f"committee {c}: device sum != host sum of its members")
+    print(f"committee sums of committees 0 and 1 == host sums of their {COMMITTEE} members")
+
+    t0 = time.perf_counter()
+    entries, agg_sk, h_points, hash_s = build_drain(rng, sks, committees, cache.mmax)
+    print(f"drain built: {len(entries)} aggregates over {len(h_points)} messages in "
+          f"{time.perf_counter() - t0:.1f} s (hash_to_g2 {hash_s:.1f} s on the host)")
+
+    # the messages were hashed on the host above; the drains reuse those
+    # points, so cold and warm time the same work
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import DST_POP
+
+    message_points = {(entries[g * AGGS][2], DST_POP): h for g, h in enumerate(h_points)}
+    seconds, launches = [], []
+    for _ in ("cold", "warm"):
+        _zero_fq_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flags = batch_verify_each_cached(cache, entries, message_points=message_points)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append(dict(BP.kernel_launches))
+        if not all(flags):
+            raise AssertionError(f"valid drain: {flags.count(False)} aggregates rejected")
+    if not all(launches[0].values()) or launches[0] != launches[1]:
+        raise AssertionError(f"drain missed a field kernel: launches {launches}")
+    rate = len(entries) / seconds[1]
+    print(f"drain of {len(entries)} aggregates: cold {seconds[0]:.3f} s, warm {seconds[1]:.3f} s; "
+          f"{rate:.1f} aggregate verifications/s; every verdict True")
+    print(f"field kernel launches per drain: {launches[1]}")
+
+    busy_ms = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            batch_verify_each_cached(cache, entries, message_points=message_points)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        busy_ms = _device_busy_ms(prof)
+    except Exception as exc:  # the measurement is optional; say why it is missing
+        print(f"profiled drain: not measured ({type(exc).__name__}: {exc})")
+    if busy_ms is not None:
+        print(f"profiled drain {prof_s:.3f} s: device busy {busy_ms:.1f} ms, "
+              f"idle share {1 - busy_ms / 1e3 / prof_s:.4f}")
+    else:
+        print("device idle share: not measured (the profiler recorded no device time)")
+
+    # one aggregate signed by the wrong key: the bisection must blame it alone
+    n = len(entries)
+    bad = n // 3
+    comm_id, miss, msg, _ = entries[bad]
+    tampered = list(entries)
+    tampered[bad] = (comm_id, miss, msg, C.g2.multiply_raw(h_points[bad // AGGS], agg_sk[bad] + 1))
+    t0 = time.perf_counter()
+    flags = batch_verify_each_cached(cache, tampered, message_points=message_points)
+    tamper_s = time.perf_counter() - t0
+    if flags != [i != bad for i in range(n)]:
+        raise AssertionError(f"tampered drain blamed {[i for i, f in enumerate(flags) if not f]}")
+    print(f"tampered drain: bisection blamed exactly entry {bad} in {tamper_s:.3f} s")
+
+    # a small sub-drain against the host pairing_check oracle
+    pick = sorted({0, 1, AGGS + 1, bad, 2 * n // 3, n - 1})
+    sub = [tampered[i] for i in pick]
+    port = batch_verify_each_cached(cache, sub, message_points=message_points)
+    neg_g1 = C.g1.affine_neg(C.G1_GENERATOR)
+    host = [
+        pairing_check([(C.g1.multiply_raw(C.G1_GENERATOR, agg_sk[i]), h_points[i // AGGS]),
+                       (neg_g1, tampered[i][3])])
+        for i in pick
+    ]
+    if port != host or host != [i != bad for i in pick]:
+        raise AssertionError(f"sub-drain: port {port}, host pairing_check {host}")
+    print(f"sub-drain of {len(pick)} aggregates == host pairing_check oracle: {host}")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"peak device memory in the BLS phase {peak:.0f} MiB")
+    record["bls"] = dict(
+        validators=int(rx.shape[1]), aggregates=len(entries), messages=len(h_points),
+        cache_build_s=cache_s, drain_s=seconds, aggregates_per_s=rate,
+        launches_per_drain=launches[1], profiled_drain_s=prof_s if busy_ms else None,
+        device_busy_ms=busy_ms, tampered_drain_s=tamper_s, peak_mib=peak,
+        hash_to_g2_s=hash_s,
+    )
+    return launches[1]
+
+
 def main() -> int:
     import torch
 
@@ -277,6 +559,18 @@ def main() -> int:
     print(f"SASS per hash: {sum(opcodes.values())} instructions, {alu} on the ALU pipe; "
           f"{dict(opcodes.most_common())}")
 
+    fq_err, fq_timings = check_fq_kernels(dev, rng)
+    for name, t in fq_timings.items():
+        ops = _sass_opcodes(libs["fq"], f"fq_{name}_kernel")
+        t["op_ms"] = _op_ms(ops, FQ_SIZES[-1], clock_mhz)
+        t["bound_ms"] = max(t["byte_ms"], t["op_ms"])
+        alu = sum(c for op, c in ops.items() if op in _ALU_OPCODES)
+        fma = sum(c for op, c in ops.items() if op in _FMA_OPCODES)
+        print(f"{name} at N={FQ_SIZES[-1]}: kernel {t['kernel_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms (bytes {t['byte_ms']:.4f}, "
+              f"int ops {t['op_ms']:.4f}); SASS per lane: {sum(ops.values())} instructions, "
+              f"{alu} on the ALU pipe, {fma} integer multiplies; {dict(ops.most_common(8))}")
+
     # ---- phase 3: the slice — a 1M-validator mainnet state root on the card
     spec = mainnet_spec()
     t0 = time.perf_counter()
@@ -311,8 +605,15 @@ def main() -> int:
     print(f"timed root {timed_s:.3f} s: {timed.seconds:.3f} s inside device backend calls, "
           f"{timed_s - timed.seconds:.3f} s host work")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    del state, backend, timed
 
-    # ---- phase 4: per-kernel numbers, then the device line
+    # ---- phase 4: the signature leg — the attestation drain on the card
+    record: dict = {"card": card}
+    t0 = time.perf_counter()
+    fq_launches = bls_phase(dev, rng, record)
+    print(f"BLS phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 5: per-kernel numbers, then the device line
     big_n = TIMED_SIZES[-1]
     t = timings[big_n]
     kernels = [{
@@ -330,6 +631,27 @@ def main() -> int:
         "bound_by": "operations" if t["op_ms"] >= t["byte_ms"] else "bytes",
         "library_ms": None,
     }]
+    for name in FQ_KERNELS:
+        t = fq_timings[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "lambda_ethereum_consensus_tpu_torch/csrc/fq.cu",
+            "replaces": "lambda_ethereum_consensus_tpu/ops/bigint_pallas.py:" + _REPLACES[name],
+            "launches": fq_launches[name],
+            "max_abs_err": fq_err,
+            "n": FQ_SIZES[-1],
+            "ms": t["kernel_ms"],
+            "kernel_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "operations" if t["op_ms"] >= t["byte_ms"] else "bytes",
+            "library_ms": None,
+        })
+    record["kernels"] = kernels
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1) + "\n")
     print(json.dumps({"kernels": kernels}))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

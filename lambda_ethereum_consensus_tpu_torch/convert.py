@@ -1,19 +1,25 @@
-"""Carry state across from the JAX package as SSZ bytes.
+"""Carry state across from the JAX package.
 
 For this system the chain state plays the part that weights play for a
 model: the port takes the JAX package's state as its canonical SSZ encoding
 (``BeaconState.encode(spec)`` there) and decodes it into its own containers.
-No object of the JAX package ever crosses.
+Device-side BLS state — registry pubkey planes, committee sums, Fq12 Miller
+outputs — crosses as numpy limb planes, ``(32, ...)`` int32 with 12-bit
+canonical limbs, the layout both packages share.  No object of the JAX
+package ever crosses.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from . import types
 from .config import ChainSpec
 from .ssz import Container
 from .types import deneb
 
-__all__ = ["container_from_ssz", "state_from_ssz"]
+__all__ = ["container_from_ssz", "planes_from_torch", "planes_to_torch", "state_from_ssz"]
 
 
 def container_from_ssz(name: str, data: bytes, spec: ChainSpec | None = None) -> Container:
@@ -27,3 +33,19 @@ def container_from_ssz(name: str, data: bytes, spec: ChainSpec | None = None) ->
 def state_from_ssz(data: bytes, spec: ChainSpec | None = None) -> types.BeaconState:
     """The port's ``BeaconState`` from its SSZ bytes."""
     return types.BeaconState.decode(data, spec)
+
+
+def planes_to_torch(planes, device: str | torch.device | None = None) -> torch.Tensor:
+    """Numpy (or any array) limb planes ``(32, ...)`` -> an int32 tensor on
+    ``device`` (default: the card)."""
+    from .ops.sha256 import resolve_device
+
+    arr = np.ascontiguousarray(np.asarray(planes), dtype=np.int32)
+    if arr.ndim < 1 or arr.shape[0] != 32:
+        raise ValueError(f"expected (32, ...) limb planes, got {arr.shape}")
+    return torch.from_numpy(arr.copy()).to(resolve_device(device))
+
+
+def planes_from_torch(t: torch.Tensor) -> np.ndarray:
+    """An int32 limb-plane tensor -> numpy ``(32, ...)`` int32 on the host."""
+    return t.detach().to("cpu", torch.int32).numpy()

@@ -1,0 +1,180 @@
+"""Batched BLS12-381 optimal-ate pairing over limb planes (PyTorch).
+
+The port's counterpart of the JAX package's ``ops/bls_pairing.py`` plane
+instantiation, in its all-device form: the Miller loop, the masked product
+over the grouping axis, the final exponentiation and the identity test, all
+on the operands' device, one boolean per check coming back
+(:func:`make_pairing_ops` ``check_tail``; the reference's composed tail,
+``bls_pairing.py:396``).
+
+Same line-slot convention and formulas as the reference: the line through
+the running twist point, evaluated at P = (px, py) and scaled by xi, lives at
+tower slots w^0 / w^3 / w^5,
+
+    l = (py*xi) * w^0 + (lambda*x_r - y_r) * w^3 + (-lambda*px) * w^5,
+
+with denominators cleared into homogeneous projective coordinates (EFD
+dbl-2007-bl and madd-1998-cmo), so every Miller value equals the
+reference's limb for limb.  The loop is a Python loop over the static bits of
+|x| that runs the add step only on set bits; independent Fq2 products of a
+step share one field call.  Inputs must be subgroup-checked points of prime
+order with infinities masked by the caller, exactly as there.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..crypto.bls.fields import BLS_X, BLS_X_IS_NEG
+from . import bls_fq12 as FQ
+from .bls_g1 import _limbs_batch
+from .ladder import _many
+
+__all__ = ["get_pairing_ops", "make_pairing_ops"]
+
+# MSB-first bits of |x| after the leading 1 (63 entries), shared by the
+# Miller loop and a^x — identical to the host loop order.
+_X_BITS = [int(b) for b in bin(BLS_X)[3:]]
+
+# The Miller loop and pow_x conjugate unconditionally for the negative BLS
+# parameter (the host path branches on the flag).
+assert BLS_X_IS_NEG, "device pairing assumes the negative BLS12-381 parameter"
+
+
+def make_pairing_ops(device: torch.device) -> dict:
+    ops = FQ.get_fq12_plane_ops(device)
+    lay = ops["layout"]
+    add, sub, neg = ops["add"], ops["sub"], ops["neg"]
+    f2many = ops["fq2_mul_many"]
+    f2xi = ops["fq2_mul_by_xi"]
+    f12m, f12sq = ops["fq12_mul"], ops["fq12_sq"]
+    f12conj, f12inv = ops["fq12_conj"], ops["fq12_inv"]
+    f12frob = ops["fq12_frobenius"]
+    mul035 = ops["fq12_mul_by_035"]
+
+    def adds(*pairs):
+        return _many(add, pairs)
+
+    def subs(*pairs):
+        return _many(sub, pairs)
+
+    def line(s_z, w3_z, py, px):
+        """(xi * s_z * py, -(w3_z * px)): the w^0 and w^5 line slots."""
+        scaled = ops["mul"](torch.stack(torch.broadcast_tensors(f2xi(s_z), w3_z), dim=1),
+                            torch.stack(torch.broadcast_tensors(py, px), dim=1).unsqueeze(2))
+        return scaled[:, 0], neg(scaled[:, 1])
+
+    def dbl_step(f, X, Y, Z, px, py):
+        """Projective doubling + line (EFD dbl-2007-bl, a = 0); the line is
+        taken at the pre-update point, scaled by (2y) * Z^3."""
+        XX, t = f2many([(X, X), (Y, Z)])
+        XX2, s = adds((XX, XX), (t, t))
+        w3 = add(XX2, XX)
+        ss, Rr, sZ = f2many([(s, s), (Y, s), (s, Z)])
+        sss, RR, B1, w3w3, Xw3, w3Z = f2many(
+            [(s, ss), (Rr, Rr), (X, Rr), (w3, w3), (X, w3), (w3, Z)]
+        )
+        B, RR2 = adds((B1, B1), (RR, RR))
+        l3 = sub(Xw3, Rr)
+        h = sub(w3w3, add(B, B))
+        Bh = sub(B, h)
+        Xn, w3Bh = f2many([(h, s), (w3, Bh)])
+        Yn = sub(w3Bh, RR2)
+        l0, l5 = line(sZ, w3Z, py, px)
+        return mul035(f, l0, l3, l5), Xn, Yn, sss
+
+    def add_step(f, X, Y, Z, qx, qy, px, py):
+        """Mixed addition of the affine base Q + line (EFD madd-1998-cmo),
+        line scaled by (qx - x_r) * Z."""
+        qyZ, qxZ = f2many([(qy, Z), (qx, Z)])
+        u, v = subs((qyZ, Y), (qxZ, X))
+        uu, vv, vZ, uZ, uX, vY = f2many([(u, u), (v, v), (v, Z), (u, Z), (u, X), (v, Y)])
+        vvv, Rm, uuZ = f2many([(v, vv), (vv, X), (uu, Z)])
+        A = sub(sub(uuZ, vvv), add(Rm, Rm))
+        l3 = sub(uX, vY)
+        Xn, uRA, vvvY, Zn = f2many([(v, A), (u, sub(Rm, A)), (vvv, Y), (vvv, Z)])
+        Yn = sub(uRA, vvvY)
+        l0, l5 = line(vZ, uZ, py, px)
+        return mul035(f, l0, l3, l5), Xn, Yn, Zn
+
+    def miller(px, py, qx, qy):
+        """Batched Miller loop: Fp ``px/py`` ``(32, B...)`` and Fq2 twist
+        coordinates ``qx/qy`` ``(32, 2, B...)``; returns f ``(32, 2, 3, 2, B...)``."""
+        f = ops["fq12_one"](lay.fq_batch_shape(px))
+        X, Y = qx, qy
+        Z = lay.fq2_like((1, 0), qx)
+        for bit in _X_BITS:
+            f = f12sq(f)
+            f, X, Y, Z = dbl_step(f, X, Y, Z, px, py)
+            if bit:
+                f, X, Y, Z = add_step(f, X, Y, Z, qx, qy, px, py)
+        return f12conj(f)  # negative BLS parameter
+
+    def pow_x_abs(a):
+        """a^|x| by square-and-multiply over the static parameter bits."""
+        acc = a
+        for bit in _X_BITS:
+            acc = f12sq(acc)
+            if bit:
+                acc = f12m(acc, a)
+        return acc
+
+    def pow_x(a):
+        # on the cyclotomic subgroup conjugation is inversion: a^-|x|
+        return f12conj(pow_x_abs(a))
+
+    def masked_product(f, mask):
+        """Fq12 batch with a K grouping axis innermost + live mask -> product
+        over K (pairwise halving); masked lanes become the identity."""
+        one = ops["fq12_one"](lay.batch_shape(f))
+        f = torch.where(lay.expand_mask(mask), f, one)
+        k = lay.ksize(f)
+        while k > 1:
+            if k % 2:
+                pad_shape = (*lay.batch_shape(f)[:-1], 1)
+                f = lay.kconcat([f, ops["fq12_one"](pad_shape)])
+                k += 1
+            f = f12m(lay.kslice(f, slice(0, None, 2)), lay.kslice(f, slice(1, None, 2)))
+            k //= 2
+        return lay.kslice(f, 0)
+
+    def final_exp(f):
+        """Easy part, then the cubed hard part — the host addition chain
+        (``crypto/bls/pairing.py``)."""
+        t = f12m(f12conj(f), f12inv(f))
+        m = f12m(f12frob(f12frob(t)), t)
+        a = f12m(pow_x(m), f12conj(m))
+        b = f12m(pow_x(a), f12conj(a))
+        c = f12m(pow_x(b), f12frob(b))
+        d = f12m(f12m(pow_x(pow_x(c)), f12frob(f12frob(c))), f12conj(c))
+        return f12m(d, f12m(f12sq(m), m))
+
+    def check_tail(f, mask):
+        """Miller outputs grouped ``(..., K)`` + live mask -> one bool per
+        group: the masked product, final exponentiation and == 1, all on
+        the device."""
+        return ops["fq12_is_one"](final_exp(masked_product(f, mask)))
+
+    return {"miller": miller, "check_tail": check_tail}
+
+
+_OPS: dict = {}
+
+
+def get_pairing_ops(device: torch.device | str) -> dict:
+    dev = torch.device(device)
+    if dev not in _OPS:
+        _OPS[dev] = make_pairing_ops(dev)
+    return _OPS[dev]
+
+
+def pack_pairs(pairs) -> tuple:
+    """[(G1 affine, G2 affine)] -> (px, py, qx, qy) numpy planes."""
+    from .bls_g2 import fq2_limbs_batch
+
+    px = _limbs_batch([p[0] for p, _ in pairs]).T.copy()
+    py = _limbs_batch([p[1] for p, _ in pairs]).T.copy()
+    qx = np.ascontiguousarray(fq2_limbs_batch([q[0] for _, q in pairs]).transpose(2, 1, 0))
+    qy = np.ascontiguousarray(fq2_limbs_batch([q[1] for _, q in pairs]).transpose(2, 1, 0))
+    return px, py, qx, qy
