@@ -24,16 +24,42 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    bisection must blame exactly that entry; two committees' device sums
    against the host sums of their members; and a small sub-drain against
    the host ``pairing_check`` oracle;
-5. one JSON line of per-kernel numbers, then the device line last.
+5. duty signing: 1,024 seeded keys signing 64 messages (16 signers each,
+   one ``SIGN_CHUNK``) through ``sign_batch`` at the full
+   256-bit ladder, cold and warm, then hash, ladder and affine timed apart;
+   every signature equal to the host comb;
+6. signature sets: ``verify_points`` over those 1,024 entries, ``batch_verify``
+   over their bytes, bisection blame of one swapped signature through
+   ``batch_verify_each_points``, a ``None`` point, and one entry (a block's
+   proposer signature) cold, warm and on the host;
+7. batch scalar multiplication: the mainnet KZG dev setup (4,096 host scalar
+   multiplications, timed), ``batch_g1_mul`` on its 4,096 points with 255-bit
+   scalars, ``batch_g2_mul`` on 1,024 points with 64-bit scalars (``k = 0``
+   lanes included, 32-lane samples against the host), and
+   ``pairing_products_are_one`` on 4 checks x 8 pairs against the host
+   ``pairing_check``;
+8. blob KZG at mainnet width: six seeded blobs committed and proved on the
+   card, each commitment equal to ``[sum_i blob_i L_i(tau)] G1`` and one to
+   the per-term host MSM, the 6-blob fold ``True``, and with one proof swapped
+   the fold ``False`` and ``verify_blob_proof`` blaming exactly that blob;
+9. the field kernels at the lane counts the drain, a sign flush and a KZG
+   MSM launch them with (launch-weighted median and 90th percentile): each
+   against its plain version there, bit for bit, with a full and a
+   broadcast (32, 1) right operand, then timed;
+10. one JSON line of per-kernel numbers, then the device line last.
 
-Needs one card, ``nvcc`` and ``cuobjdump``; exits nonzero without a card.
-Longer records land in ``chiprun_out/chip_smoke.json``.
+Every path of phases 3-8 is driven with the kernels' launch counts set to 0
+just before it and read just after; a path that launched a kernel of its
+own no time fails the run.  Needs one card, ``nvcc`` and ``cuobjdump``;
+exits nonzero without a card.  Longer records land in
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -57,6 +83,15 @@ N_COMMITTEES, COMMITTEE = 256, 2048
 INSTANCES, GROUPS, AGGS = 2, 127, 16
 # the Pallas kernel bodies the field kernels replace
 _REPLACES = {"mul_mod": "127", "add_mod": "108", "sub_mod": "116"}
+# duty signing: one sign_batch dispatch, an operator's slot of
+# MAX_COMMITTEES_PER_SLOT = 64 messages with 16 signers each
+SIGNERS, DUTY_MESSAGES = 1024, 64
+# batch scalar multiplication: a mainnet-width KZG MSM, and the G2 side of
+# the RLC scaling (_scale_entries) at the signer count
+G1_LANES, G2_LANES, MUL_SAMPLE = 4096, 1024, 32
+PAIR_CHECKS, PAIRS_PER_CHECK = 4, 8
+# blob KZG: FIELD_ELEMENTS_PER_BLOB and MAX_BLOBS_PER_BLOCK (mainnet, Deneb)
+BLOB_WIDTH, N_BLOBS = 4096, 6
 
 # H100 SXM, from the data sheet and the Hopper white paper: HBM3 rate, SMs,
 # INT32 lanes per SM (the ALU pipe) and thread-instructions an SM can issue
@@ -429,30 +464,17 @@ def bls_phase(dev, rng, record: dict) -> dict:
         launches.append(dict(BP.kernel_launches))
         if not all(flags):
             raise AssertionError(f"valid drain: {flags.count(False)} aggregates rejected")
-    if not all(launches[0].values()) or launches[0] != launches[1]:
-        raise AssertionError(f"drain missed a field kernel: launches {launches}")
+    _require_all(launches[0], "drain")
+    if launches[0] != launches[1]:
+        raise AssertionError(f"drain launch counts differ between runs: {launches}")
     rate = len(entries) / seconds[1]
     print(f"drain of {len(entries)} aggregates: cold {seconds[0]:.3f} s, warm {seconds[1]:.3f} s; "
           f"{rate:.1f} aggregate verifications/s; every verdict True")
     print(f"field kernel launches per drain: {launches[1]}")
 
-    busy_ms = None
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            batch_verify_each_cached(cache, entries, message_points=message_points)
-            torch.cuda.synchronize()
-            prof_s = time.perf_counter() - t0
-        busy_ms = _device_busy_ms(prof)
-    except Exception as exc:  # the measurement is optional; say why it is missing
-        print(f"profiled drain: not measured ({type(exc).__name__}: {exc})")
-    if busy_ms is not None:
-        print(f"profiled drain {prof_s:.3f} s: device busy {busy_ms:.1f} ms, "
-              f"idle share {1 - busy_ms / 1e3 / prof_s:.4f}")
-    else:
-        print("device idle share: not measured (the profiler recorded no device time)")
+    prof_s, busy_ms = _profiled(
+        lambda: batch_verify_each_cached(cache, entries, message_points=message_points))
+    print(_idle_line("drain", prof_s, busy_ms))
 
     # one aggregate signed by the wrong key: the bisection must blame it alone
     n = len(entries)
@@ -485,11 +507,465 @@ def bls_phase(dev, rng, record: dict) -> dict:
     record["bls"] = dict(
         validators=int(rx.shape[1]), aggregates=len(entries), messages=len(h_points),
         cache_build_s=cache_s, drain_s=seconds, aggregates_per_s=rate,
-        launches_per_drain=launches[1], profiled_drain_s=prof_s if busy_ms else None,
+        launches_per_drain=launches[1], profiled_drain_s=prof_s,
         device_busy_ms=busy_ms, tampered_drain_s=tamper_s, peak_mib=peak,
         hash_to_g2_s=hash_s,
     )
-    return launches[1]
+    return launches[1], lambda: batch_verify_each_cached(cache, entries, message_points=message_points)
+
+
+def _sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _launches() -> dict:
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+
+    return dict(BP.kernel_launches)
+
+
+def _require_all(launches: dict, path: str) -> None:
+    """Fail the run unless every field kernel launched on ``path``."""
+    missed = [name for name in FQ_KERNELS if not launches.get(name)]
+    if missed:
+        raise AssertionError(f"{path} launched no {missed}: launches {launches}")
+
+
+def _counted(fn, path: str):
+    """Run ``fn`` once with the launch counts zeroed just before and read
+    just after; returns (result, seconds, launches)."""
+    _zero_fq_launches()
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    _require_all(launches, path)
+    return out, seconds, launches
+
+
+def _reset_peak() -> None:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_mib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def _profiled(fn) -> tuple[float, float]:
+    """Wall seconds and device-busy ms of one run of ``fn`` under
+    ``torch.profiler``, tracing the device only (host events of ~10^5 tensor
+    ops take the profiler about a minute to post-process)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        wall = time.perf_counter() - t0
+    busy = _device_busy_ms(prof)
+    if busy is None:
+        raise AssertionError("the profiler recorded no device time")
+    return wall, busy
+
+
+def _total(launches: dict) -> int:
+    return sum(launches[k] for k in FQ_KERNELS)
+
+
+def _idle_line(name: str, wall: float, busy_ms: float) -> str:
+    return (f"profiled {name}: {wall:.3f} s, device busy {busy_ms:.1f} ms, "
+            f"idle share {1 - busy_ms / 1e3 / wall:.4f}")
+
+
+def sign_phase(dev, rng, record: dict) -> dict:
+    """Phase 5: a duty flush of SIGNERS signatures over DUTY_MESSAGES
+    messages through ``sign_batch``, cold and warm; then hash, ladder and
+    affine apart; every signature equal to the host comb."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import api
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.fields import R
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2_many
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_g2 as G2
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_sign as S
+
+    _reset_peak()
+    per_msg = SIGNERS // DUTY_MESSAGES
+    scalars = [int.from_bytes(rng.bytes(32), "big") % (R - 1) + 1 for _ in range(SIGNERS)]
+    sks = [k.to_bytes(32, "big") for k in scalars]
+    messages = [b"chip-smoke duty msg %d" % (i // per_msg) for i in range(SIGNERS)]
+    flushes = []
+    for tag in ("cold", "warm"):
+        sigs, sec, launches = _counted(lambda: S.sign_batch(sks, messages, device=dev),
+                                       f"sign_batch ({tag})")
+        flushes.append((sigs, sec, launches))
+    if flushes[0][0] != flushes[1][0] or flushes[0][2] != flushes[1][2]:
+        raise AssertionError("cold and warm sign flushes differ")
+    sigs, launches = flushes[1][0], flushes[1][2]
+
+    distinct = list(dict.fromkeys(messages))
+    t0 = time.perf_counter()
+    hashed = hash_to_g2_many(distinct)
+    hash_s = time.perf_counter() - t0
+    points = [hashed[i // per_msg] for i in range(SIGNERS)]
+    jac, ladder_s, ladder_launches = _counted(lambda: G2.g2_ladder(points, scalars, 256, dev),
+                                              "sign ladder")
+    t0 = time.perf_counter()
+    sig_points = G2.g2_affine(jac)
+    affine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    comb = S._sign_points_host(points, scalars)
+    comb_s = time.perf_counter() - t0
+    if sig_points != comb or [C.g2_to_bytes(p) for p in comb] != sigs:
+        raise AssertionError("device signatures != host comb")
+    sample = [0, 1, SIGNERS // 2, SIGNERS - 1]
+    if [api.sign(sks[i], messages[i]) for i in sample] != [sigs[i] for i in sample]:
+        raise AssertionError("device signatures != api.sign on a sample")
+    wall, busy = _profiled(lambda: G2.g2_affine(G2.g2_ladder(points, scalars, 256, dev)))
+    peak = _peak_mib()
+    print(f"sign flush of {SIGNERS} signatures ({DUTY_MESSAGES} messages x {per_msg} signers, "
+          f"256-bit ladder, {-(-SIGNERS // S.SIGN_CHUNK)} dispatch): cold {flushes[0][1]:.3f} s, "
+          f"warm {flushes[1][1]:.3f} s; {launches} field launches per flush "
+          f"({_total(launches)} in all)")
+    print(f"sign flush parts: hash {hash_s:.3f} s ({len(distinct)} messages on the host), "
+          f"ladder {ladder_s:.3f} s ({_total(ladder_launches)} launches), affine {affine_s:.3f} s")
+    print(f"{SIGNERS} signatures == host comb ({comb_s:.1f} s on the host) and api.sign on "
+          f"{len(sample)}")
+    print(_idle_line("sign ladder + affine", wall, busy) + f"; peak device memory {peak:.0f} MiB")
+    record["sign"] = dict(
+        signers=SIGNERS, messages=DUTY_MESSAGES, flush_s=[f[1] for f in flushes],
+        launches_per_flush=launches, hash_s=hash_s, ladder_s=ladder_s, affine_s=affine_s,
+        ladder_launches=ladder_launches, host_comb_s=comb_s, profiled_s=wall,
+        device_busy_ms=busy, peak_mib=peak,
+    )
+    return dict(scalars=scalars, messages=messages, points=points, sig_points=sig_points,
+                sigs=sigs, hashed=dict(zip(distinct, hashed)))
+
+
+def sets_phase(dev, rng, record: dict, duty: dict) -> None:
+    """Phase 6: the duty flush's (pk, message, signature) entries as
+    signature sets."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import DST_POP
+
+    _reset_peak()
+    msgs, sig_points = duty["messages"], duty["sig_points"]
+    t0 = time.perf_counter()
+    pks = [C.g1.multiply(C.G1_GENERATOR, k) for k in duty["scalars"]]
+    duty["pks"] = pks
+    pk_s = time.perf_counter() - t0
+    memo = {(m, DST_POP): h for m, h in duty["hashed"].items()}
+    entries = [(pk, m, sig) for pk, m, sig in zip(pks, msgs, sig_points)]
+    ok, set_s, set_launches = _counted(
+        lambda: B.verify_points(entries, message_points=memo, device=dev), "verify_points")
+    if ok is not True:
+        raise AssertionError(f"verify_points over {len(entries)} valid entries: {ok}")
+    items = [(C.g1_to_bytes(pk), m, sig) for pk, m, sig in zip(pks, msgs, duty["sigs"])]
+    ok, bytes_s, _ = _counted(lambda: B.batch_verify(items, device=dev), "batch_verify")
+    if ok is not True:
+        raise AssertionError(f"batch_verify over {len(items)} valid byte triples: {ok}")
+
+    bad = SIGNERS // 3
+    other = bad ^ 1  # a co-signer of the same message
+    swapped = list(entries)
+    swapped[bad] = (pks[bad], msgs[bad], sig_points[other])
+    flags, blame_s, blame_launches = _counted(
+        lambda: B.batch_verify_each_points(swapped, message_points=memo, device=dev),
+        "batch_verify_each_points")
+    if flags != [i != bad for i in range(len(swapped))]:
+        raise AssertionError(f"bisection blamed {[i for i, f in enumerate(flags) if not f]}")
+    with_none = list(entries)
+    with_none[7] = (None, msgs[7], sig_points[7])
+    if B.verify_points(with_none, message_points=memo, device=dev) is not False:
+        raise AssertionError("a None point did not fail the set")
+
+    single = entries[:1]
+    _, cold_s, single_launches = _counted(
+        lambda: B.verify_points(single, device=dev), "verify_points (one entry, cold)")
+    ok, warm_s, warm_launches = _counted(
+        lambda: B.verify_points(single, message_points=memo, device=dev),
+        "verify_points (one entry, warm)")
+    t0 = time.perf_counter()
+    host_ok = B.verify_points(single, message_points=memo, host=True)
+    host_s = time.perf_counter() - t0
+    if not (ok is True and host_ok is True):
+        raise AssertionError(f"one valid entry: device {ok}, host {host_ok}")
+    wall, busy = _profiled(lambda: B.verify_points(entries, message_points=memo, device=dev))
+    peak = _peak_mib()
+    print(f"verify_points over {len(entries)} entries ({DUTY_MESSAGES} messages) True in "
+          f"{set_s:.3f} s, {_total(set_launches)} field launches {set_launches}; "
+          f"host pubkeys {pk_s:.1f} s")
+    print(f"batch_verify over {len(items)} byte triples True in {bytes_s:.3f} s "
+          f"(decompression and subgroup checks on the host included)")
+    print(f"swapped signature: batch_verify_each_points blamed exactly entry {bad} in "
+          f"{blame_s:.3f} s, {_total(blame_launches)} field launches")
+    print("a None point: verify_points False")
+    print(f"one entry (a proposer signature): cold {cold_s:.3f} s (hash_to_g2 included), warm "
+          f"{warm_s:.3f} s, {_total(warm_launches)} field launches; host pure-Python check "
+          f"{host_s:.3f} s")
+    print(_idle_line("verify_points", wall, busy) + f"; peak device memory {peak:.0f} MiB")
+    record["sets"] = dict(
+        entries=len(entries), verify_points_s=set_s, verify_points_launches=set_launches,
+        batch_verify_bytes_s=bytes_s, blame_s=blame_s, blame_launches=blame_launches,
+        single_cold_s=cold_s, single_warm_s=warm_s, single_launches=warm_launches,
+        single_cold_launches=single_launches, single_host_s=host_s, host_pubkeys_s=pk_s,
+        profiled_s=wall, device_busy_ms=busy, peak_mib=peak,
+    )
+
+
+def kzg_setup(record: dict):
+    from lambda_ethereum_consensus_tpu_torch.da import kzg as K
+
+    t0 = time.perf_counter()
+    setup = K.dev_setup(BLOB_WIDTH)
+    setup_s = time.perf_counter() - t0
+    print(f"KZG dev setup of width {BLOB_WIDTH} ({BLOB_WIDTH} G1 scalar multiplications) "
+          f"on the host in {setup_s:.1f} s")
+    record["kzg_setup_s"] = setup_s
+    return setup
+
+
+def mul_phase(dev, rng, record: dict, duty: dict, setup) -> None:
+    """Phase 7: batch_g1_mul / batch_g2_mul with k = 0 lanes against the
+    host on samples, and pairing_products_are_one against pairing_check."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.pairing import pairing_check
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_g1 as G1
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_g2 as G2
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
+
+    _reset_peak()
+    runs = {}
+    for name, group, mul, bases, nbits in (
+        ("batch_g1_mul", C.g1, G1.batch_g1_mul, list(setup.g1_lagrange[:G1_LANES]), 255),
+        ("batch_g2_mul", C.g2, G2.batch_g2_mul, duty["sig_points"][:G2_LANES], 64),
+    ):
+        n = len(bases)
+        every = max(n // 8, 2)  # every this-many-th scalar is 0
+        ks = [int.from_bytes(rng.bytes(32), "big") >> (256 - nbits) for _ in range(n)]
+        for i in range(0, n, every):
+            ks[i] = 0
+        out, sec, launches = _counted(lambda: mul(bases, ks, 256 if nbits > 64 else 64, dev),
+                                      name)
+        pick = sorted({0, every, *rng.choice(n, MUL_SAMPLE - 2, replace=False).tolist()})
+        want = [group.multiply_raw(bases[i], ks[i]) for i in pick]
+        if [out[i] for i in pick] != want or [out[i] is None for i in range(n)] != [
+            k == 0 for k in ks
+        ]:
+            raise AssertionError(f"{name} != host multiply_raw on the sample")
+        runs[name] = dict(lanes=n, scalar_bits=nbits, seconds=sec, launches=launches)
+        print(f"{name}: {n} lanes, {nbits}-bit scalars, {n // every} k = 0 lanes, {sec:.3f} s, "
+              f"{_total(launches)} field launches {launches}; == host on {len(pick)} lanes")
+
+    neg_g = C.g1.affine_neg(C.G1_GENERATOR)
+    half = PAIRS_PER_CHECK // 2
+    checks, expect = [], []
+    for c in range(PAIR_CHECKS):
+        signers = list(range(c * 16, c * 16 + half))
+        sigs = [duty["sig_points"][i] for i in signers]
+        if c % 2:  # a false check: one signature from another key
+            sigs[0] = duty["sig_points"][signers[0] ^ 1]
+        checks.append([pair for i, s in zip(signers, sigs)
+                       for pair in ((duty["pks"][i], duty["points"][i]), (neg_g, s))])
+        expect.append(c % 2 == 0)
+    got, pair_s, pair_launches = _counted(lambda: BPair.pairing_products_are_one(checks, dev),
+                                          "pairing_products_are_one")
+    t0 = time.perf_counter()
+    host = [pairing_check(c) for c in checks]
+    host_s = time.perf_counter() - t0
+    if not got == host == expect:
+        raise AssertionError(f"pairing_products_are_one {got}, host {host}, expected {expect}")
+    peak = _peak_mib()
+    print(f"pairing_products_are_one: {PAIR_CHECKS} checks x {PAIRS_PER_CHECK} pairs {got} == host "
+          f"pairing_check ({host_s:.2f} s on the host) in {pair_s:.3f} s, "
+          f"{_total(pair_launches)} field launches; peak device memory {peak:.0f} MiB")
+    record["mul"] = dict(runs, pairing_s=pair_s, pairing_launches=pair_launches,
+                         pairing_host_s=host_s, peak_mib=peak)
+
+
+def kzg_phase(dev, rng, record: dict, setup) -> bytes:
+    """Phase 8: six mainnet-width blobs committed, proved and folded on the
+    card; returns one blob for phase 9."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.fields import R
+    from lambda_ethereum_consensus_tpu_torch.da import kzg as K
+
+    _reset_peak()
+    evals = [[int.from_bytes(rng.bytes(32), "big") % R for _ in range(BLOB_WIDTH)]
+             for _ in range(N_BLOBS)]
+    blobs = [b"".join(v.to_bytes(32, "big") for v in e) for e in evals]
+    lagrange = K._lagrange_at(K._dev_tau(BLOB_WIDTH), setup.domain)
+    commitments, commit = [], []
+    for b, e in zip(blobs, evals):
+        c, sec, launches = _counted(lambda: K.blob_to_commitment(b, setup, device=dev),
+                                    "blob_to_commitment")
+        oracle = C.g1.multiply(C.G1_GENERATOR, sum(x * l for x, l in zip(e, lagrange)) % R)
+        if c != C.g1_to_bytes(oracle):
+            raise AssertionError(f"commitment {len(commitments)} != [sum blob_i L_i(tau)] G1")
+        commitments.append(c)
+        commit.append((sec, launches))
+    t0 = time.perf_counter()
+    per_term = K._msm(setup.g1_lagrange, evals[0], host=True)
+    per_term_s = time.perf_counter() - t0
+    if C.g1_to_bytes(per_term) != commitments[0]:
+        raise AssertionError("commitment 0 != the per-term host MSM")
+    proofs, prove = [], []
+    for b, c in zip(blobs, commitments):
+        pf, sec, launches = _counted(lambda: K.compute_blob_proof(b, c, setup, device=dev),
+                                     "compute_blob_proof")
+        proofs.append(pf)
+        prove.append((sec, launches))
+    ok, fold_s, fold_launches = _counted(
+        lambda: K.verify_blob_batch(blobs, commitments, proofs, setup, device=dev),
+        "verify_blob_batch")
+    if ok is not True:
+        raise AssertionError(f"verify_blob_batch over {N_BLOBS} valid blobs: {ok}")
+    bad = N_BLOBS // 2
+    swapped = list(proofs)
+    swapped[bad] = proofs[(bad + 1) % N_BLOBS]
+    folded = K.verify_blob_batch(blobs, commitments, swapped, setup, device=dev)
+    t0 = time.perf_counter()
+    per_blob = [K.verify_blob_proof(b, c, pf, setup)
+                for b, c, pf in zip(blobs, commitments, swapped)]
+    per_blob_s = time.perf_counter() - t0
+    if folded is not False or per_blob != [i != bad for i in range(N_BLOBS)]:
+        raise AssertionError(f"swapped proof: fold {folded}, per blob {per_blob}")
+    wall, busy = _profiled(lambda: K.blob_to_commitment(blobs[0], setup, device=dev))
+    peak = _peak_mib()
+    print(f"{N_BLOBS} commitments at width {BLOB_WIDTH} == [sum blob_i L_i(tau)] G1 (and blob 0 "
+          f"== the per-term host MSM, {per_term_s:.1f} s on the host)")
+    for tag, rows in (("commitment", commit), ("blob proof", prove)):
+        print(f"{tag} dispatches: " + ", ".join(f"{s:.3f} s" for s, _ in rows)
+              + f"; {_total(rows[-1][1])} field launches each {rows[-1][1]}")
+    print(f"verify_blob_batch over {N_BLOBS} blobs True in {fold_s:.3f} s "
+          f"({_total(fold_launches)} field launches); with proof {bad} swapped the fold is False "
+          f"and verify_blob_proof blames exactly blob {bad} ({per_blob_s:.2f} s on the host)")
+    print(_idle_line("commitment", wall, busy) + f"; peak device memory {peak:.0f} MiB")
+    record["kzg"] = dict(
+        width=BLOB_WIDTH, blobs=N_BLOBS, commit=commit, prove=prove, fold_s=fold_s,
+        fold_launches=fold_launches, per_term_host_s=per_term_s, per_blob_host_s=per_blob_s,
+        profiled_s=wall, device_busy_ms=busy, peak_mib=peak,
+    )
+    return blobs[0]
+
+
+class _LaneRecorder:
+    """Counts each field-kernel launch by its lane count while active, by
+    wrapping the wrappers' shared launch function."""
+
+    def __enter__(self):
+        import torch
+
+        from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+
+        self.hist = {name: Counter() for name in FQ_KERNELS}
+        self._real = real = BP._launch
+
+        def recording(name, a, b):
+            shape = torch.broadcast_shapes(a.shape, b.shape)
+            self.hist[name][math.prod(shape[1:])] += 1
+            return real(name, a, b)
+
+        BP._launch = recording
+        return self
+
+    def __exit__(self, *exc):
+        from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+
+        BP._launch = self._real
+
+
+def _weighted_quantile(hist: Counter, q: float) -> int:
+    """The lane count below which a share ``q`` of the launches fall."""
+    total = sum(hist.values())
+    acc = 0
+    for lanes in sorted(hist):
+        acc += hist[lanes]
+        if acc >= q * total:
+            return lanes
+    raise AssertionError("empty launch histogram")
+
+
+def _device_us(fn, reps: int, kernel: str) -> tuple[float, int]:
+    """Device time per launch of ``kernel`` (a symbol-name fragment) over
+    ``reps`` calls of ``fn``, from the profiler's device trace, and the
+    number of launches the trace kept (it can drop over half of them; the
+    launches are identical, so the mean over those kept stands for all)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync()
+    evts = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in evts)
+    if not 0 < count <= reps:
+        raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {reps}")
+    return sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+               for e in evts) / count, count
+
+
+def path_shape_timings(dev, rng, paths: dict) -> tuple[int, dict]:
+    """Phase 9: each field kernel at the launch-weighted median and
+    90th-percentile lane counts of each path, held against its plain
+    version there bit for bit (a full and a broadcast (32, 1) right
+    operand); then its device time per launch (profiler), the wall time per
+    wrapper call back to back (CUDA events; host-bound at these sizes), and
+    its byte bound there (two 128-byte operands read and one written per
+    lane).  Returns (max abs error, {path: {kernel: row}})."""
+    import torch
+
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+
+    max_err = 0
+    out = {}
+    for path, fn in paths.items():
+        with _LaneRecorder() as rec:
+            fn()
+            _sync()
+        out[path] = {}
+        for name in FQ_KERNELS:
+            kernel = getattr(BP, name)
+            row = dict(launches=sum(rec.hist[name].values()))
+            for tag, q in (("p50", 0.5), ("p90", 0.9)):
+                m = _weighted_quantile(rec.hist[name], q)
+                a = _fq_operands(rng, m, dev, [])
+                b = _fq_operands(rng, m, dev, [])
+                for rhs in (b, _fq_operands(rng, 1, dev, [])):
+                    got, plain = kernel(a, rhs), BP._PLAIN[name](a, rhs)
+                    err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
+                    max_err = max(max_err, err)
+                    if err or not torch.equal(got, plain):
+                        raise AssertionError(f"{name} kernel != plain version at the {path} "
+                                             f"{tag} shape (32, {m}), right operand "
+                                             f"{tuple(rhs.shape)}")
+                call_us = _event_ms(lambda: kernel(a, b), reps=200, warmup=5) * 1e3
+                device_us, traced = _device_us(lambda: kernel(a, b), 200, f"fq_{name}_kernel")
+                bound_us = 3 * 128 * m / HBM_BYTES_PER_S * 1e6
+                row[tag] = dict(lanes=m, device_us=device_us, traced=traced, call_us=call_us,
+                                byte_bound_us=bound_us, share=bound_us / device_us)
+            out[path][name] = row
+            print(f"{path:>10} {name}: {row['launches']} launches; "
+                  + "; ".join(f"{tag} {r['lanes']} lanes: device {r['device_us']:.2f} us per "
+                              f"launch, byte bound {r['byte_bound_us']:.3f} us "
+                              f"({100 * r['share']:.1f} %), wrapper call {r['call_us']:.1f} us"
+                              for tag, r in ((t, row[t]) for t in ("p50", "p90"))))
+    print("field kernels == plain versions at every path's p50 and p90 lane counts "
+          "(full and broadcast (32, 1) right operands)")
+    return max_err, out
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -610,10 +1086,37 @@ def main() -> int:
     # ---- phase 4: the signature leg — the attestation drain on the card
     record: dict = {"card": card}
     t0 = time.perf_counter()
-    fq_launches = bls_phase(dev, rng, record)
+    fq_launches, drain = bls_phase(dev, rng, record)
     print(f"BLS phase {time.perf_counter() - t0:.1f} s")
 
-    # ---- phase 5: per-kernel numbers, then the device line
+    # ---- phases 5-8: duty signing, signature sets, scalar multiplication, KZG
+    t0 = time.perf_counter()
+    duty = sign_phase(dev, rng, record)
+    print(f"duty-signing phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sets_phase(dev, rng, record, duty)
+    print(f"signature-set phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    setup = kzg_setup(record)
+    mul_phase(dev, rng, record, duty, setup)
+    print(f"scalar-multiplication phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    blob = kzg_phase(dev, rng, record, setup)
+    print(f"KZG phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 9: the field kernels at the main paths' lane counts
+    from lambda_ethereum_consensus_tpu_torch.da import kzg as K
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_g2 as G2
+
+    paths = {
+        "drain": drain,
+        "sign flush": lambda: G2.g2_ladder(duty["points"], duty["scalars"], 256, dev),
+        "KZG MSM": lambda: K.blob_to_commitment(blob, setup, device=dev),
+    }
+    path_err, record["path_shapes"] = path_shape_timings(dev, rng, paths)
+    fq_err = max(fq_err, path_err)
+
+    # ---- phase 10: per-kernel numbers, then the device line
     big_n = TIMED_SIZES[-1]
     t = timings[big_n]
     kernels = [{
@@ -649,6 +1152,8 @@ def main() -> int:
             "library_ms": None,
         })
     record["kernels"] = kernels
+    record["seconds"] = time.perf_counter() - T_START
+    print(f"chip smoke {record['seconds']:.1f} s")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1) + "\n")

@@ -1,19 +1,29 @@
-"""Attestation drain: per-entry verdicts over epoch-cached committee
-aggregates, with bisection blame.
+"""Batched signature verification (random linear combination), with
+bisection blame.
 
-The port's counterpart of the JAX package's
-``crypto/bls/batch.batch_verify_each_cached``.  Each check is one random
-linear combination (RLC) over a range of entries, grouped by message:
+The port's counterpart of the JAX package's ``crypto/bls/batch.py``.
+``batch_verify`` checks N ``(pubkey, message, signature)`` triples with one
+pairing-product equation instead of 2N pairings:
 
     prod_j e( sum_{i in group_j} r_i * pk_i , H(m_j) )
          * e( -g1, sum_i r_i * sig_i )  ==  1
 
-with independent coefficients ``r_i`` of ``coeff_bits`` bits (default 64,
-the JAX package's deployed ``BLS_RLC_BITS``), verified whole on the device
-(:func:`..ops.bls_batch.chain_verify_cached`).  A failed range is split in
-half, level by level: every range of one bisection level goes to the device
-together as one chained call.  There is no host fallback: the device the
-cache lives on runs every check.
+with independent coefficients ``r_i`` of ``coeff_bits`` bits (default
+:data:`COEFF_BITS`, 64, the JAX package's deployed ``BLS_RLC_BITS``), items
+grouped by distinct message.  Each check runs whole on the device
+(:func:`..ops.bls_batch.chain_verify`, or ``chain_verify_cached`` over an
+epoch committee cache for the attestation drain).  A failed range is split
+in half, level by level: every range of one bisection level goes to the
+device together as one chained call, so ``b`` bad items cost O(log N)
+device round trips.
+
+Two pieces of the JAX package are not carried over.  Its
+``BLS_DEVICE_CHAIN_MIN`` size gate sent small batches to the host; it was
+tuned to a TPU's dispatch cost, so here every check goes to the device until
+the card's crossover is measured.  Its containment re-verified on the host
+after a device fault; here a device error raises.  The pure-Python host
+tail, :func:`_verify_points_host`, runs only when the caller asks for it
+(``host=True``): the JAX package's native C++ RLC is not ported.
 """
 
 from __future__ import annotations
@@ -21,10 +31,161 @@ from __future__ import annotations
 import secrets
 from typing import Sequence
 
-from ...ops.bls_batch import COEFF_BITS
+from ...ops.rlc import COEFF_BITS
+from . import curve as C
+from .curve import DeserializationError
 from .hash_to_curve import DST_POP, hash_to_g2
+from .pairing import pairing_check
 
-__all__ = ["batch_verify_each_cached"]
+__all__ = [
+    "COEFF_BITS",
+    "batch_verify",
+    "batch_verify_each_cached",
+    "batch_verify_each_points",
+    "verify_points",
+]
+
+# entry: (g1 affine point, message bytes, g2 affine point)
+PointEntry = tuple
+
+
+def _message_point(message: bytes, dst: bytes, message_points: dict):
+    h = message_points.get((message, dst))
+    if h is None:
+        h = message_points[(message, dst)] = hash_to_g2(message, dst)
+    return h
+
+
+def _pack_check(entry_list, dst, message_points, coeff_bits: int = COEFF_BITS):
+    """``(pk, message, sig)`` entries -> a ``chain_verify`` check tuple,
+    memoizing ``hash_to_g2`` through ``message_points``."""
+    group_of: dict[bytes, int] = {}
+    h_points: list = []
+    gids = []
+    packed = []
+    for pk, message, sig in entry_list:
+        g = group_of.get(message)
+        if g is None:
+            g = group_of[message] = len(h_points)
+            h_points.append(_message_point(message, dst, message_points))
+        gids.append(g)
+        packed.append((pk, sig, secrets.randbits(coeff_bits) | 1))
+    return (packed, h_points, gids)
+
+
+def _bisect(n: int, dead, check_ranges) -> list[bool]:
+    """Per-entry verdicts by level-synchronous bisection.  ``dead(i)``: entry
+    ``i`` is invalid by definition (a range holding one fails without a
+    check); ``check_ranges(ranges)`` verifies a whole level's live ranges in
+    one call, one bool each."""
+    flags = [False] * n
+    pending = [list(range(n))] if n else []
+    while pending:
+        oks = {k: False for k, r in enumerate(pending) if any(dead(i) for i in r)}
+        live = [(k, r) for k, r in enumerate(pending) if k not in oks]
+        if live:
+            for (k, _), ok in zip(live, check_ranges([r for _, r in live])):
+                oks[k] = ok
+        nxt: list[list[int]] = []
+        for k, index_range in enumerate(pending):
+            if oks[k]:
+                for i in index_range:
+                    flags[i] = True
+            elif len(index_range) > 1:
+                mid = len(index_range) // 2
+                nxt.append(index_range[:mid])
+                nxt.append(index_range[mid:])
+        pending = nxt
+    return flags
+
+
+def _scale_entries(entries, coeffs, bits: int = COEFF_BITS, device=None):
+    """``[(r_i * pk_i)], [(r_i * sig_i)]`` through the batched ladders on
+    ``device`` (default: the card).  The JAX package's host tail scales
+    through this above its size gate; no entry point of the port calls it
+    until that gate is ported."""
+    from ...ops.bls_g1 import batch_g1_mul
+    from ...ops.bls_g2 import batch_g2_mul
+
+    pks = batch_g1_mul([pk for pk, _, _ in entries], coeffs, bits, device)
+    sigs = batch_g2_mul([sig for _, _, sig in entries], coeffs, bits, device)
+    return pks, sigs
+
+
+def verify_points(
+    entries: Sequence[PointEntry],
+    dst: bytes = DST_POP,
+    message_points: dict | None = None,
+    device=None,
+    coeff_bits: int = COEFF_BITS,
+    host: bool = False,
+) -> bool:
+    """The RLC check over already-decompressed, subgroup-checked points, as
+    one chained check on ``device`` (default: the card); ``host=True`` runs
+    the pure-Python :func:`_verify_points_host` instead.
+
+    A ``None`` point is undecodable, so the batch is invalid.
+    ``message_points`` memoizes ``hash_to_g2`` across calls.
+    """
+    if not entries:
+        return True
+    if any(pk is None or sig is None for pk, _, sig in entries):
+        return False
+    if message_points is None:
+        message_points = {}
+    if host:
+        return _verify_points_host(entries, dst, message_points, coeff_bits)
+    from ...ops import bls_batch
+
+    check = _pack_check(entries, dst, message_points, coeff_bits)
+    return bls_batch.chain_verify([check], device, coeff_bits)[0]
+
+
+def _verify_points_host(
+    entries: Sequence[PointEntry],
+    dst: bytes,
+    message_points: dict,
+    coeff_bits: int = COEFF_BITS,
+) -> bool:
+    """The RLC check in pure Python: per-entry scalar products, group sums,
+    and the host :func:`.pairing.pairing_check`."""
+    coeffs = [secrets.randbits(coeff_bits) | 1 for _ in entries]
+    scaled_pks = [C.g1.multiply_raw(pk, r) for (pk, _, _), r in zip(entries, coeffs)]
+    scaled_sigs = [C.g2.multiply_raw(sig, r) for (_, _, sig), r in zip(entries, coeffs)]
+    by_message: dict[bytes, C.AffinePoint] = {}
+    sig_acc: C.AffinePoint = None
+    for (_, message, _), scaled_pk, scaled_sig in zip(entries, scaled_pks, scaled_sigs):
+        by_message[message] = C.g1.affine_add(by_message.get(message), scaled_pk)
+        sig_acc = C.g2.affine_add(sig_acc, scaled_sig)
+    pairs = [(pk_sum, _message_point(message, dst, message_points))
+             for message, pk_sum in by_message.items()]
+    pairs.append((C.g1.affine_neg(C.G1_GENERATOR), sig_acc))
+    return pairing_check(pairs)
+
+
+def batch_verify_each_points(
+    entries: Sequence[PointEntry],
+    dst: bytes = DST_POP,
+    message_points: dict | None = None,
+    device=None,
+    coeff_bits: int = COEFF_BITS,
+) -> list[bool]:
+    """Per-entry validity of ``(pk, message, sig)`` point entries with
+    bisection blame; each level's ranges go to ``device`` (default: the
+    card) as one chained call.  Ranges holding a ``None`` point fail without
+    reaching the device."""
+    from ...ops import bls_batch
+
+    if message_points is None:
+        message_points = {}
+
+    def check_ranges(ranges):
+        checks = [_pack_check([entries[i] for i in r], dst, message_points, coeff_bits)
+                  for r in ranges]
+        return bls_batch.chain_verify(checks, device, coeff_bits)
+
+    return _bisect(len(entries), lambda i: entries[i][0] is None or entries[i][2] is None,
+                   check_ranges)
 
 
 def batch_verify_each_cached(
@@ -37,15 +198,14 @@ def batch_verify_each_cached(
     """Per-entry validity over a :class:`..ops.bls_batch.DeviceCommitteeCache`.
 
     Entries are ``(comm_id, miss_members, message, sig_point)``; the
-    aggregate pubkey is ``full_sum[comm_id] - sum(missing)`` on the device.
-    Callers guarantee miss lists within ``cache.mmax``, non-empty
-    participation, and signatures decompressed and subgroup-checked (a
-    ``None`` signature is undecodable, hence invalid).  ``message_points``
-    memoizes ``hash_to_g2`` across calls.
+    aggregate pubkey is ``full_sum[comm_id] - sum(missing)`` on the device
+    the cache lives on.  Callers guarantee miss lists within
+    ``cache.mmax``, non-empty participation, and signatures decompressed and
+    subgroup-checked (a ``None`` signature is undecodable, hence invalid).
+    ``message_points`` memoizes ``hash_to_g2`` across calls.
     """
-    from ...ops.bls_batch import chain_verify_cached
+    from ...ops import bls_batch
 
-    flags = [False] * len(entries)
     if message_points is None:
         message_points = {}
 
@@ -59,34 +219,34 @@ def batch_verify_each_cached(
             g = group_of.get(message)
             if g is None:
                 g = group_of[message] = len(h_points)
-                h = message_points.get((message, dst))
-                if h is None:
-                    h = message_points[(message, dst)] = hash_to_g2(message, dst)
-                h_points.append(h)
+                h_points.append(_message_point(message, dst, message_points))
             gids.append(g)
             packed.append((comm_id, miss, sig, secrets.randbits(coeff_bits) | 1))
         return (packed, h_points, gids)
 
-    pending = [list(range(len(entries)))] if len(entries) else []
-    while pending:
-        # ranges with an undecodable signature are invalid by definition
-        dead_ranges = {
-            k for k, r in enumerate(pending) if any(entries[i][3] is None for i in r)
-        }
-        live = [(k, r) for k, r in enumerate(pending) if k not in dead_ranges]
-        oks = {k: False for k in dead_ranges}
-        if live:
-            verdicts = chain_verify_cached(cache, [pack(r) for _, r in live], coeff_bits)
-            for (k, _), ok in zip(live, verdicts):
-                oks[k] = ok
-        nxt: list[list[int]] = []
-        for k, index_range in enumerate(pending):
-            if oks[k]:
-                for i in index_range:
-                    flags[i] = True
-            elif len(index_range) > 1:
-                mid = len(index_range) // 2
-                nxt.append(index_range[:mid])
-                nxt.append(index_range[mid:])
-        pending = nxt
-    return flags
+    def check_ranges(ranges):
+        return bls_batch.chain_verify_cached(cache, [pack(r) for r in ranges], coeff_bits)
+
+    return _bisect(len(entries), lambda i: entries[i][3] is None, check_ranges)
+
+
+def batch_verify(
+    items: Sequence[tuple[bytes, bytes, bytes]],
+    dst: bytes = DST_POP,
+    device=None,
+    coeff_bits: int = COEFF_BITS,
+) -> bool:
+    """All-or-nothing batch over ``(pubkey, message, signature)`` byte
+    triples, verified as one check on ``device`` (default: the card)."""
+    if not items:
+        return True
+    from .api import _pubkey_point
+
+    try:
+        entries = [
+            (_pubkey_point(bytes(pk)), message, C.g2_from_bytes(sig))
+            for pk, message, sig in items
+        ]
+    except DeserializationError:
+        return False
+    return verify_points(entries, dst, device=device, coeff_bits=coeff_bits)

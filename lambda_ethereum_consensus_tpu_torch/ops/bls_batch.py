@@ -31,10 +31,10 @@ import torch
 from ..crypto.bls import curve as C
 from . import bigint as BI
 from .bls_fq12 import get_fq12_plane_ops
-from .bls_g1 import _limbs_batch, _scalar_bits_batch, g1_plane_field
-from .bls_g2 import fq2_limbs_batch, g2_plane_field
+from .bls_g1 import _limbs_batch, _scalar_bits_batch, g1_jacobian_ops
+from .bls_g2 import fq2_limbs_batch, g2_jacobian_ops
 from .bls_pairing import get_pairing_ops
-from .ladder import make_jacobian_ops
+from .rlc import COEFF_BITS
 from .sha256 import resolve_device
 
 __all__ = [
@@ -45,10 +45,6 @@ __all__ = [
     "chain_verify_cached",
     "get_chain_ops",
 ]
-
-#: RLC coefficient width (bits) the port's entry points default to: the
-#: deployed batch-verification width of the JAX package (``BLS_RLC_BITS``).
-COEFF_BITS = 64
 
 _QUANTUM = 8
 
@@ -80,8 +76,8 @@ def _g2_planes(points) -> tuple[np.ndarray, np.ndarray]:
 def make_chain_ops(device: torch.device) -> dict:
     """The chained-stage functions over tensors on ``device``."""
     fq = get_fq12_plane_ops(device)
-    g1j = make_jacobian_ops(g1_plane_field(device))
-    g2j = make_jacobian_ops(g2_plane_field(device))
+    g1j = g1_jacobian_ops(device)
+    g2j = g2_jacobian_ops(device)
     pairing = get_pairing_ops(device)
     one_plane = torch.tensor(BI.to_limbs(1), device=device)  # (32,)
 

@@ -19,6 +19,11 @@ reference's limb for limb.  The loop is a Python loop over the static bits of
 |x| that runs the add step only on set bits; independent Fq2 products of a
 step share one field call.  Inputs must be subgroup-checked points of prime
 order with infinities masked by the caller, exactly as there.
+
+The host-facing API (:func:`miller_loop_batch`, :func:`pairing_product_is_one`,
+:func:`pairing_products_are_one`) pads batches to powers of two with the
+generator pair, masks the padding to the identity, and runs on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -26,12 +31,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..crypto.bls.curve import G1_GENERATOR, G2_GENERATOR
 from ..crypto.bls.fields import BLS_X, BLS_X_IS_NEG
 from . import bls_fq12 as FQ
-from .bls_g1 import _limbs_batch
+from .bls_g1 import _limbs_batch, _planes
 from .ladder import _many
+from .sha256 import resolve_device
 
-__all__ = ["get_pairing_ops", "make_pairing_ops"]
+__all__ = [
+    "get_pairing_ops",
+    "make_pairing_ops",
+    "miller_loop_batch",
+    "pairing_product_is_one",
+    "pairing_products_are_one",
+]
 
 # MSB-first bits of |x| after the leading 1 (63 entries), shared by the
 # Miller loop and a^x — identical to the host loop order.
@@ -178,3 +191,58 @@ def pack_pairs(pairs) -> tuple:
     qx = np.ascontiguousarray(fq2_limbs_batch([q[0] for _, q in pairs]).transpose(2, 1, 0))
     qy = np.ascontiguousarray(fq2_limbs_batch([q[1] for _, q in pairs]).transpose(2, 1, 0))
     return px, py, qx, qy
+
+
+def _pow2_pad(n: int) -> int:
+    k = 1
+    while k < n:
+        k *= 2
+    return k
+
+
+def _pad_pairs(pairs, target: int) -> list:
+    """Pad with the generator pair: padded lanes are masked to the identity
+    after the Miller loop, so their value never matters."""
+    return list(pairs) + [(G1_GENERATOR, G2_GENERATOR)] * (target - len(pairs))
+
+
+def _miller_planes(pairs, device: torch.device) -> torch.Tensor:
+    return get_pairing_ops(device)["miller"](*[_planes(x, device) for x in pack_pairs(pairs)])
+
+
+def miller_loop_batch(pairs, device: str | torch.device | None = None) -> list:
+    """Batched Miller loops on ``device`` (default: the card) -> host Fq12
+    tuples.  ``pairs``: affine, non-infinity, subgroup-checked (P in G1, Q
+    in G2)."""
+    dev = resolve_device(device)
+    if not pairs:
+        return []
+    n = len(pairs)
+    f = _miller_planes(_pad_pairs(pairs, _pow2_pad(n)), dev)
+    return FQ.fq12_batch_from_limbs(f[..., :n].cpu().numpy())
+
+
+def pairing_product_is_one(pairs, device: str | torch.device | None = None) -> bool:
+    """Single check: prod e(P_i, Q_i) == 1, on ``device``."""
+    return pairing_products_are_one([pairs], device)[0]
+
+
+def pairing_products_are_one(checks, device: str | torch.device | None = None) -> list[bool]:
+    """Batched pairing-product checks, one bool per inner pair list: the
+    Miller loops, masked products, final exponentiation and identity test
+    all on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    if not checks:
+        return []
+    kmax = _pow2_pad(max(len(c) for c in checks))
+    g = _pow2_pad(len(checks))
+    flat = []
+    mask = np.zeros((g, kmax), bool)
+    for i in range(g):
+        chk = checks[i] if i < len(checks) else []
+        mask[i, : len(chk)] = True
+        flat.extend(_pad_pairs(chk, kmax))
+    f = _miller_planes(flat, dev)
+    f = f.reshape(*f.shape[:-1], g, kmax)
+    ok = get_pairing_ops(dev)["check_tail"](f, torch.from_numpy(mask).to(dev))
+    return [bool(v) for v in ok.cpu().tolist()[: len(checks)]]

@@ -1,0 +1,39 @@
+"""Every module of the port imports with ``jax`` and the JAX package blocked.
+
+A fresh interpreter sets ``sys.modules["jax"]`` (and ``jaxlib``) and
+``sys.modules["lambda_ethereum_consensus_tpu"]`` to ``None``, so any import of
+them raises, then imports every module under
+``lambda_ethereum_consensus_tpu_torch``.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "lambda_ethereum_consensus_tpu"):
+    sys.modules[name] = None
+import lambda_ethereum_consensus_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print("\\n".join(names))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    names = set(out.stdout.split())
+    prefix = "lambda_ethereum_consensus_tpu_torch."
+    for module in (
+        "crypto.bls.api", "crypto.bls.batch", "da.kzg", "ops.bls_batch", "ops.rlc",
+        "ops.bls_g1", "ops.bls_g2", "ops.bls_pairing", "ops.bls_sign", "ops.sha256",
+        "ssz.core", "types.beacon",
+    ):
+        assert prefix + module in names
