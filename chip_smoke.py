@@ -8,7 +8,8 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    (one ``nvcc`` per source, all started together);
 2. every kernel against its plain PyTorch version on the card, bit for bit,
    at the main paths' shapes (SHA-256 nodes, and the three field kernels at
-   1, 7, 1024 and 1,048,576 lanes with the edge values 0, 1 and p-1 and a
+   1, 7, 33, 1024, 4072, 20360 and 1,048,576 lanes and on both sides of
+   ``mul_mod``'s group threshold, with the edge values 0, 1 and p-1 and a
    broadcast (32, 1) operand), plus a hashlib sample; kernels and plain
    versions timed with CUDA events;
 3. the state-root leg: ``BeaconState.hash_tree_root`` of a mainnet-preset
@@ -45,7 +46,10 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
 9. the field kernels at the lane counts the drain, a sign flush and a KZG
    MSM launch them with (launch-weighted median and 90th percentile): each
    against its plain version there, bit for bit, with a full and a
-   broadcast (32, 1) right operand, then timed;
+   broadcast (32, 1) right operand, then timed beside an empty kernel
+   launched with the same grid (what a bare launch costs); and
+   ``mul_mod``'s two bodies, each held against the plain version and timed,
+   from 4,072 lanes to 2^20, which sets ``MUL_GROUP_THRESHOLD``;
 10. one JSON line of per-kernel numbers, then the device line last.
 
 Every path of phases 3-8 is driven with the kernels' launch counts set to 0
@@ -75,7 +79,9 @@ SEED = 20261016
 N_VALIDATORS = 1_000_000
 CHECK_SIZES = (1, 7, 255, 1000, 1 << 20)
 TIMED_SIZES = (1 << 20, 8_000_000)
-FQ_SIZES = (1, 7, 1024, 1 << 20)
+FQ_SIZES = (1, 7, 33, 1024, 4072, 20360, 1 << 20)  # the last is timed
+# lane counts at which mul_mod's two bodies are timed against each other
+MUL_SWEEP = (4072, 8192, 9216, 10240, 12288, 16384, 20360, 65536, 262144, 1 << 20)
 FQ_KERNELS = ("mul_mod", "add_mod", "sub_mod")
 # the drain of scripts/bench_chain.py:60-67 (BASELINE.json "128 Attestations
 # x 2048-validator committees"): 2 x 127 messages x 16 aggregates
@@ -289,9 +295,10 @@ def _fq_operands(rng, n: int, dev, edges: list[int]):
 
 def check_fq_kernels(dev, rng) -> tuple[int, dict]:
     """Each field kernel against its plain version on the card, bit for bit,
-    at FQ_SIZES lanes with edge values and a broadcast (32, 1) operand; then
-    kernel and plain version timed at 1 M lanes.  Returns (max abs error,
-    {name: timings})."""
+    at FQ_SIZES lanes and at ``MUL_GROUP_THRESHOLD`` - 1, + 0 and + 1 (so
+    both of mul_mod's bodies), with edge values and a broadcast (32, 1)
+    operand; then kernel and plain version timed at 1 M lanes.  Returns (max
+    abs error, {name: timings})."""
     import torch
 
     from lambda_ethereum_consensus_tpu_torch.crypto.bls.fields import P
@@ -300,7 +307,10 @@ def check_fq_kernels(dev, rng) -> tuple[int, dict]:
     max_err = 0
     edges_a = [0, 1, P - 1, P - 1, 1, 0, P - 1]
     edges_b = [P - 1, 1, P - 1, 0, P - 1, 0, 1]
-    for n in FQ_SIZES:
+    t = BP.MUL_GROUP_THRESHOLD
+    if not FQ_SIZES[-1] >= t:
+        raise AssertionError(f"the timed size {FQ_SIZES[-1]} must run mul_mod's one-thread body")
+    for n in sorted({*FQ_SIZES, t - 1, t, t + 1}):
         a = _fq_operands(rng, n, dev, edges_a if n > 1 else [P - 1])
         b = _fq_operands(rng, n, dev, edges_b if n > 1 else [P - 1])
         const = _fq_operands(rng, 1, dev, [])
@@ -313,7 +323,8 @@ def check_fq_kernels(dev, rng) -> tuple[int, dict]:
                 max_err = max(max_err, err)
                 if err or not torch.equal(got, plain):
                     raise AssertionError(f"{name} kernel != plain version at N={n}, {tag} operand")
-        print(f"field kernels == plain versions at N={n} (edge values, broadcast (32, 1) operand)")
+        print(f"field kernels == plain versions at N={n} (edge values, broadcast (32, 1) operand; "
+              f"mul_mod {BP._geometry('mul_mod', n)[0]} thread(s) per element)")
         del a, b
     timings = {}
     n = FQ_SIZES[-1]
@@ -894,21 +905,26 @@ def _weighted_quantile(hist: Counter, q: float) -> int:
     raise AssertionError("empty launch histogram")
 
 
-def _device_us(fn, reps: int, kernel: str) -> tuple[float, int]:
+def _device_us(fn, reps: int, kernel: str, attempts: int = 3) -> tuple[float, int]:
     """Device time per launch of ``kernel`` (a symbol-name fragment) over
     ``reps`` calls of ``fn``, from the profiler's device trace, and the
-    number of launches the trace kept (it can drop over half of them; the
-    launches are identical, so the mean over those kept stands for all)."""
+    number of launches the trace kept (it can drop over half of them, and
+    now and then all: such a window is profiled again, up to ``attempts``
+    times; the launches are identical, so the mean over those kept stands
+    for all)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     _sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        _sync()
-    evts = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in evts)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            _sync()
+        evts = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in evts)
+        if count:
+            break
     if not 0 < count <= reps:
         raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {reps}")
     return sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
@@ -950,19 +966,67 @@ def path_shape_timings(dev, rng, paths: dict) -> tuple[int, dict]:
                                              f"{tag} shape (32, {m}), right operand "
                                              f"{tuple(rhs.shape)}")
                 call_us = _event_ms(lambda: kernel(a, b), reps=200, warmup=5) * 1e3
-                device_us, traced = _device_us(lambda: kernel(a, b), 200, f"fq_{name}_kernel")
+                device_us, traced = _device_us(lambda: kernel(a, b), 200, f"fq_{name}")
+                geometry = BP._geometry(name, m)
+                bare_us, _ = _device_us(lambda: BP._run("empty", a, b, (32, m), geometry), 200,
+                                        "fq_empty")
                 bound_us = 3 * 128 * m / HBM_BYTES_PER_S * 1e6
                 row[tag] = dict(lanes=m, device_us=device_us, traced=traced, call_us=call_us,
-                                byte_bound_us=bound_us, share=bound_us / device_us)
+                                byte_bound_us=bound_us, share=bound_us / device_us,
+                                bare_launch_us=bare_us, group=geometry[0])
             out[path][name] = row
             print(f"{path:>10} {name}: {row['launches']} launches; "
-                  + "; ".join(f"{tag} {r['lanes']} lanes: device {r['device_us']:.2f} us per "
-                              f"launch, byte bound {r['byte_bound_us']:.3f} us "
-                              f"({100 * r['share']:.1f} %), wrapper call {r['call_us']:.1f} us"
+                  + "; ".join(f"{tag} {r['lanes']} lanes: device {r['device_us']:.3f} us per "
+                              f"launch, bare launch {r['bare_launch_us']:.3f} us, byte bound "
+                              f"{r['byte_bound_us']:.3f} us ({100 * r['share']:.1f} %), "
+                              f"wrapper call {r['call_us']:.1f} us"
                               for tag, r in ((t, row[t]) for t in ("p50", "p90"))))
     print("field kernels == plain versions at every path's p50 and p90 lane counts "
           "(full and broadcast (32, 1) right operands)")
     return max_err, out
+
+
+def mul_body_sweep(dev, rng) -> tuple[int, dict]:
+    """Phase 9, last: mul_mod's group body and one-thread body at each of
+    MUL_SWEEP lane counts, each held against the plain version there and
+    timed (profiler device time per launch), beside the byte bound and a
+    bare launch of each grid.  Where the one-thread body overtakes the group
+    body sets ``MUL_GROUP_THRESHOLD``.  Returns (max abs error, rows)."""
+    import torch
+
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+
+    max_err = 0
+    rows = {}
+    for m in MUL_SWEEP:
+        a, b = _fq_operands(rng, m, dev, []), _fq_operands(rng, m, dev, [])
+        plain = BP._PLAIN["mul_mod"](a, b)
+        row = dict(byte_bound_us=3 * 128 * m / HBM_BYTES_PER_S * 1e6)
+        for body, group in (("group", BP.MUL_GROUP), ("one-thread", 1)):
+            threads = BP.BLOCK_THREADS["mul_mod"]
+            geometry = (group, threads, -(-m * group // threads))
+            got = BP._run("mul_mod", a, b, (32, m), geometry)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
+            max_err = max(max_err, err)
+            if err or not torch.equal(got, plain):
+                raise AssertionError(f"mul_mod {body} body != plain version at N={m}")
+            us, _ = _device_us(lambda: BP._run("mul_mod", a, b, (32, m), geometry), 100,
+                               "fq_mul_mod")
+            bare, _ = _device_us(lambda: BP._run("empty", a, b, (32, m), geometry), 100,
+                                 "fq_empty")
+            row[body] = dict(device_us=us, bare_launch_us=bare)
+        row["wrapper_body"] = "group" if BP._geometry("mul_mod", m)[0] > 1 else "one-thread"
+        rows[m] = row
+        print(f"mul_mod at {m} lanes: group body {row['group']['device_us']:.3f} us, one-thread "
+              f"body {row['one-thread']['device_us']:.3f} us (bare launches "
+              f"{row['group']['bare_launch_us']:.3f} / {row['one-thread']['bare_launch_us']:.3f} "
+              f"us), byte bound {row['byte_bound_us']:.3f} us; the wrapper runs the "
+              f"{row['wrapper_body']} body")
+        del a, b, plain
+    print(f"mul_mod's bodies == plain version at {list(MUL_SWEEP)} lanes; threshold "
+          f"{BP.MUL_GROUP_THRESHOLD}")
+    return max_err, rows
 
 
 T_START = time.perf_counter()
@@ -1046,6 +1110,10 @@ def main() -> int:
               f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms (bytes {t['byte_ms']:.4f}, "
               f"int ops {t['op_ms']:.4f}); SASS per lane: {sum(ops.values())} instructions, "
               f"{alu} on the ALU pipe, {fma} integer multiplies; {dict(ops.most_common(8))}")
+    group_ops = _sass_opcodes(libs["fq"], "fq_mul_mod_group_kernel")
+    print(f"mul_mod group body: SASS per thread {sum(group_ops.values())} instructions, "
+          f"{sum(c for op, c in group_ops.items() if op in _FMA_OPCODES)} integer multiplies, "
+          f"{group_ops.get('SHFL', 0)} shuffles; {dict(group_ops.most_common(8))}")
 
     # ---- phase 3: the slice — a 1M-validator mainnet state root on the card
     spec = mainnet_spec()
@@ -1114,7 +1182,8 @@ def main() -> int:
         "KZG MSM": lambda: K.blob_to_commitment(blob, setup, device=dev),
     }
     path_err, record["path_shapes"] = path_shape_timings(dev, rng, paths)
-    fq_err = max(fq_err, path_err)
+    sweep_err, record["mul_body_sweep"] = mul_body_sweep(dev, rng)
+    fq_err = max(fq_err, path_err, sweep_err)
 
     # ---- phase 10: per-kernel numbers, then the device line
     big_n = TIMED_SIZES[-1]

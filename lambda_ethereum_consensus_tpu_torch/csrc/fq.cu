@@ -9,37 +9,82 @@
 //   fq_sub_mod  <- `_sub_mod_kernel` (:116-124)
 // Same function on the same layout: an Fq element is 32 little-endian limbs
 // of 12 bits in int32, canonical (limbs < 2^12, value < p), stored limb-major
-// as an (32, M) plane array, so limb i of element t sits at a[i*M + t] and a
-// warp's loads of one limb are 128 contiguous bytes. Every output is the
-// canonical residue, so any exact method gives the reference's bits.
+// as an (32, M) plane array, so limb i of element t sits at a[i*M + t].
+// Every output is the canonical residue, so any exact method gives the
+// reference's bits.
 //
-// What bounds them on this card: bytes. Each element reads 2 x 128 bytes and
-// writes 128, 384 bytes in all, about 0.115 ms per 1 M elements at 3.35 TB/s.
-// The multiply's integer work (about 400 32x32->64-bit multiplies a lane on
-// the FMA pipe, 64 lanes per SM per clock) stays under that.
+// What bounds them on this card depends on the lane count M.
+// - Large launches (2^20 lanes): bytes. Each element reads 2 x 128 bytes and
+//   writes 128, 384 bytes in all, 0.1202 ms per 2^20 elements at 3.35 TB/s;
+//   the multiply's integer work (about 400 32x32->64-bit products a lane)
+//   stays under that.
+// - The lane counts the BLS paths launch with (2,000-25,000): latency. With
+//   one thread per element in 256-thread blocks a 4,072-lane multiply fills
+//   16 of 132 SMs and waits out one thread's chain of about 2,100 dependent
+//   instructions (5.5 us, against a 0.47 us byte bound); an add waits out
+//   two serial 33-limb sweeps (2.4 us at 6,144 lanes). An empty kernel on
+//   the same grid takes 0.8-1.3 us, the floor under both. Tensor cores, TMA
+//   and clusters do not serve a 381-bit carry chain over 384 bytes a lane;
+//   shared memory would only serve a transpose of the limb-major planes,
+//   which the loads below do not need.
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 9, recorded in PERF.md.)
 //
 // What the design does about it:
-// - one thread per element, no shared memory, straight-line code out of
-//   registers; loads and stores are coalesced across the warp;
-// - the multiply does not run the reference's 12-bit schoolbook (1,024 limb
-//   products and a 64-limb carry sweep, the shape of the TPU's int32 vector
-//   unit). It repacks the 32 limbs into twelve 32-bit words in registers,
-//   forms the 768-bit product with 144 `mul.wide` steps and 64-bit carries,
-//   reduces it by Barrett (HAC 14.42) in base 2^32 with k = 12 and
-//   mu = floor(2^768 / p) (13 words), subtracts p at most twice, and unpacks;
-// - add and sub keep the 12-bit limbs: one 33-limb carry sweep (arithmetic
-//   shifts for the signed sweep of a - b + p) and one conditional subtract
-//   of p, as the reference does;
+// - the multiply works in twelve 32-bit words: the 768-bit product in
+//   `mul.wide` rows with 64-bit carries, Barrett (HAC 14.42) in base 2^32
+//   with k = 12 and mu = floor(2^768 / p) (13 words), one conditional
+//   subtraction of p (the remainder is below 2p, see mul_mod_words);
+// - it has two bodies, picked by the wrapper from the lane count
+//   (ops/bigint_pallas.py `MUL_GROUP_THRESHOLD`): below it a group of
+//   kMulGroup threads of a warp per element, from it on one thread per
+//   element (the same code with a group of one). Rank t of a group loads
+//   only its limbs (words [t W, t W + W), W = 12 / kMulGroup), gathers y
+//   with 12 shuffles, and takes rows [t C, t C + C) of each of Barrett's
+//   three products (x*y, q1*mu, q3*p mod b^13), so its chain of multiplies
+//   is kMulGroup times shorter; the group sums its shares in log2(kMulGroup)
+//   rounds of __shfl_xor_sync, exchanging only the words a share spans.
+//   Every rank then holds the whole remainder, so the final subtraction's
+//   borrow is the group's by construction; each rank stores its own limbs.
+//   A group of 2 beat groups of 1 and 4 at 4,072-8,192 lanes (2.9 us at
+//   4,072);
+//   from about 9,000 lanes the one-thread body is faster;
+// - add spreads an element over kAddGroup threads too, each adding its 16
+//   limbs with a serial sweep; the carries between the threads' blocks come
+//   from one __ballot_sync of generate and one of propagate bits
+//   (group_carries), then the subtraction of p runs the same way with
+//   borrows, and the borrow out of the top block picks v - p or v for the
+//   whole group;
+// - blocks of 64 or 128 threads (the wrapper's choice) spread the paths'
+//   launches over the card's SMs;
+// - sub keeps its first body: one 33-limb carry sweep (arithmetic shifts for
+//   the signed sweep of a - b + p) and one conditional subtract of p, as
+//   the reference does, in 256-thread blocks;
 // - an operand whose batch axes are all broadcast (the (32, 1) constants of
 //   the tower and the ladders) is read with a lane stride of 0, so it is
 //   never materialised.
 //
-// Interface: plain C, loaded with ctypes. Each launcher runs on the caller's
-// stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() so the wrapper can refuse a launch that did not run.
+// Interface: plain C, loaded with ctypes. Each launcher takes the launch
+// geometry from the wrapper (threads per element, threads per block,
+// blocks), checks it, runs on the caller's stream, allocates nothing, does
+// not synchronise, and returns cudaGetLastError() so the wrapper can refuse
+// a launch that did not run. `fq_empty` launches an empty kernel with the
+// same arguments and grid, to time what a bare launch costs.
+//
+// Without nvcc (a host C++ compiler), everything above the kernels compiles
+// as plain C++, so the arithmetic and the thread-to-limb mapping can be
+// driven on the CPU with an emulated group (see tests/test_torch_fq_layout.py).
 
 #include <cstdint>
+
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#define FQ_FN __device__ __forceinline__
+#define FQ_LDG(p) __ldg(p)
+#else
+#define FQ_FN inline
+#define FQ_LDG(p) (*(p))
+#define __constant__
+#endif
 
 // clang-format off
 // p in 12-bit limbs and in 32-bit words, and mu = floor(2^768 / p).
@@ -62,20 +107,34 @@ __constant__ uint32_t kMu[13] = {
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;  // launch bound of every kernel
+constexpr int kMulGroup = 2;      // threads per element of the multiply's group body
+constexpr int kAddGroup = 2;      // threads per element of the add
 constexpr int kLimbs = 32;
 constexpr int kLimbBits = 12;
 constexpr int32_t kMask = (1 << kLimbBits) - 1;
 constexpr int kWords = 12;  // 12 x 32 = 384 bits
 
-// 32 limbs of 12 bits -> 12 words of 32 bits.
-__device__ __forceinline__ void load_words(const int32_t* __restrict__ src,
-                                           int64_t limb_stride, uint32_t w[kWords]) {
+// A group of one: the one-thread bodies exchange nothing.
+struct OneLane {
+  FQ_FN uint32_t shfl(uint32_t v, int) const { return v; }
+  FQ_FN uint32_t shfl_xor(uint32_t v, int) const { return v; }
+  FQ_FN uint32_t ballot(bool p) const { return p ? 1u : 0u; }
+};
+
+// Rank t of a group of G holds limbs [t L, t L + L), L = 32 / G, which for
+// G in {1, 2, 4} are exactly words [t W, t W + W), W = 12 / G, at the same
+// bit offsets for every rank.
+template <int G>
+FQ_FN void load_share(const int32_t* __restrict__ src, int64_t limb_stride, int t,
+                      uint32_t w[kWords / G]) {
+  constexpr int L = kLimbs / G;
+  src += static_cast<int64_t>(t) * L * limb_stride;
 #pragma unroll
-  for (int k = 0; k < kWords; ++k) w[k] = 0;
+  for (int k = 0; k < kWords / G; ++k) w[k] = 0;
 #pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const uint32_t limb = static_cast<uint32_t>(__ldg(src + i * limb_stride));
+  for (int i = 0; i < L; ++i) {
+    const uint32_t limb = static_cast<uint32_t>(FQ_LDG(src + i * limb_stride));
     const int bit = kLimbBits * i;
     const int k = bit >> 5;
     const int off = bit & 31;
@@ -84,11 +143,21 @@ __device__ __forceinline__ void load_words(const int32_t* __restrict__ src,
   }
 }
 
-// 12 words -> 32 limbs of 12 bits, stored at dst[i * m].
-__device__ __forceinline__ void store_words(int32_t* __restrict__ dst, int64_t m,
-                                            const uint32_t w[kWords]) {
+// Rank t's words of r (all 12 held by every rank) -> its limbs, at dst[i * m].
+template <int G>
+FQ_FN void store_share(int32_t* __restrict__ dst, int64_t m, int t, const uint32_t r[kWords]) {
+  constexpr int W = kWords / G;
+  constexpr int L = kLimbs / G;
+  uint32_t w[W];
 #pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
+  for (int k = 0; k < W; ++k) {
+    w[k] = r[k];  // r[t W + k], without indexing registers by t
+#pragma unroll
+    for (int u = 1; u < G; ++u) w[k] = t == u ? r[u * W + k] : w[k];
+  }
+  dst += static_cast<int64_t>(t) * L * m;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
     const int bit = kLimbBits * i;
     const int k = bit >> 5;
     const int off = bit & 31;
@@ -98,110 +167,241 @@ __device__ __forceinline__ void store_words(int32_t* __restrict__ dst, int64_t m
   }
 }
 
-// r = r - p if r >= p (r has 13 words, the top one possibly nonzero).
-__device__ __forceinline__ void sub_p_if_ge(uint32_t r[13]) {
-  uint32_t d[13];
-  uint32_t borrow = 0;
+// Rank t's rows of a * b (NA x NB words), rows [t C, t C + C) below NA,
+// summed as sum_r a[t C + r] * b * 2^(32 r) and kept mod 2^(32 NS): the
+// rank's share of the product, in a frame 32 t C bits up. Each row is one
+// `mul.wide` carry chain.
+template <int G, int C, int NA, int NB, int NS>
+FQ_FN void rows_of_rank(int t, const uint32_t* a, const uint32_t* b, uint32_t s[NS]) {
 #pragma unroll
-  for (int k = 0; k < 13; ++k) {
-    const uint64_t pk = k < kWords ? kPw[k] : 0u;
-    const uint64_t t = static_cast<uint64_t>(r[k]) - pk - borrow;
-    d[k] = static_cast<uint32_t>(t);
-    borrow = static_cast<uint32_t>(t >> 63);
-  }
-  const uint32_t keep = 0u - borrow;  // all ones where r < p
+  for (int k = 0; k < NS; ++k) s[k] = 0;
 #pragma unroll
-  for (int k = 0; k < 13; ++k) r[k] = (r[k] & keep) | (d[k] & ~keep);
-}
-
-// (x * y) mod p for canonical x, y in words; r canonical.
-__device__ __forceinline__ void mul_mod_words(const uint32_t x[kWords],
-                                              const uint32_t y[kWords],
-                                              uint32_t r[kWords]) {
-  // z = x * y, 24 words, schoolbook by rows: each step is one mul.wide plus
-  // two 32-bit adds into a 64-bit value that cannot overflow.
-  uint32_t z[2 * kWords];
+  for (int r = 0; r < C; ++r) {
+    uint32_t w = a[r];  // a[t C + r], without indexing registers by t
 #pragma unroll
-  for (int k = 0; k < 2 * kWords; ++k) z[k] = 0;
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
+    for (int u = 1; u < G; ++u) {
+      if (u * C + r < NA) w = t == u ? a[u * C + r] : w;
+      else if (t == u) w = 0;
+    }
     uint64_t carry = 0;
 #pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      const uint64_t t = static_cast<uint64_t>(x[i]) * y[j] + z[i + j] + carry;
-      z[i + j] = static_cast<uint32_t>(t);
-      carry = t >> 32;
+    for (int j = 0; j < NB; ++j) {
+      if (r + j < NS) {
+        const uint64_t v = static_cast<uint64_t>(w) * b[j] + s[r + j] + carry;
+        s[r + j] = static_cast<uint32_t>(v);
+        carry = v >> 32;
+      }
     }
-    z[i + kWords] = static_cast<uint32_t>(carry);
+    if (r + NB < NS) s[r + NB] = static_cast<uint32_t>(carry);
   }
+}
+
+// The sum of the group's shares (rows_of_rank<G, C, ., NB, NS>), in every
+// rank. Before the round of distance d a rank holds the sum of its block of
+// d ranks (d C rows, below 2^(32 (d C + NB))) in the frame of the block's
+// lowest rank; the round adds the partner block's sum, 32 d C bits up, into
+// the frame of the lower block. NS words are kept: the sums are below
+// 2^(32 NS) in every frame, or wanted mod 2^(32 NS) only.
+template <int G, int C, int NB, int NS, class Lanes>
+FQ_FN void group_sum(const Lanes& lanes, int t, uint32_t s[NS]) {
+#pragma unroll
+  for (int d = 1; d < G; d <<= 1) {
+    const int width = d * C + NB < NS ? d * C + NB : NS;  // words a block's sum spans
+    const bool high = (t & d) != 0;
+    uint32_t lo[NS], hi[NS];
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      if (k < width) {
+        const uint32_t other = lanes.shfl_xor(s[k], d);
+        lo[k] = high ? other : s[k];
+        hi[k] = high ? s[k] : other;
+      } else {
+        lo[k] = hi[k] = 0;
+      }
+    }
+    uint64_t carry = 0;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const uint64_t v = static_cast<uint64_t>(lo[k]) + (k >= d * C ? hi[k - d * C] : 0u) + carry;
+      s[k] = static_cast<uint32_t>(v);
+      carry = v >> 32;
+    }
+  }
+}
+
+// d = r - q (12 words); returns the borrow out.
+FQ_FN uint32_t sub_words(const uint32_t r[kWords], const uint32_t* q, uint32_t d[kWords]) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    const uint64_t v = static_cast<uint64_t>(r[k]) - q[k] - borrow;
+    d[k] = static_cast<uint32_t>(v);
+    borrow = static_cast<uint32_t>(v >> 63);
+  }
+  return borrow;
+}
+
+// (x * y) mod p, computed by a group of G threads (rank t): the rank holds
+// its words of x (x_own) and all of y; every rank gets the canonical r.
+template <int G, class Lanes>
+FQ_FN void mul_mod_words(const Lanes& lanes, int t, const uint32_t* x_own,
+                         const uint32_t y[kWords], uint32_t r[kWords]) {
+  constexpr int W = kWords / G;      // rows of x per rank
+  constexpr int Q = (13 + G - 1) / G;  // rows of q1 and of q3 per rank
+
+  // z = x * y, 24 words
+  uint32_t z[2 * kWords];
+  rows_of_rank<1, W, W, kWords, 2 * kWords>(0, x_own, y, z);
+  group_sum<G, W, kWords, 2 * kWords>(lanes, t, z);
 
   // Barrett, base b = 2^32, k = 12: q1 = z >> b^(k-1) (13 words),
   // q3 = (q1 * mu) >> b^(k+1) (13 words).
   uint32_t q2[26];
-#pragma unroll
-  for (int k = 0; k < 26; ++k) q2[k] = 0;
-#pragma unroll
-  for (int i = 0; i < 13; ++i) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < 13; ++j) {
-      const uint64_t t =
-          static_cast<uint64_t>(z[kWords - 1 + i]) * kMu[j] + q2[i + j] + carry;
-      q2[i + j] = static_cast<uint32_t>(t);
-      carry = t >> 32;
-    }
-    q2[i + 13] = static_cast<uint32_t>(carry);
-  }
+  rows_of_rank<G, Q, 13, 13, 26>(t, z + kWords - 1, kMu, q2);
+  group_sum<G, Q, 13, 26>(lanes, t, q2);
   const uint32_t* q3 = q2 + 13;
 
   // r2 = (q3 * p) mod b^13: only the products that land in the low 13 words.
   uint32_t r2[13];
-#pragma unroll
-  for (int k = 0; k < 13; ++k) r2[k] = 0;
-#pragma unroll
-  for (int i = 0; i < 13; ++i) {
-    uint64_t carry = 0;
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      if (i + j < 13) {
-        const uint64_t t = static_cast<uint64_t>(q3[i]) * kPw[j] + r2[i + j] + carry;
-        r2[i + j] = static_cast<uint32_t>(t);
-        carry = t >> 32;
-      }
-    }
-    if (i == 0) r2[kWords] = static_cast<uint32_t>(carry);
-  }
+  rows_of_rank<G, Q, 13, kWords, 13>(t, q3, kPw, r2);
+  group_sum<G, Q, kWords, 13>(lanes, t, r2);
 
-  // r = (z mod b^13) - r2 mod b^13; the true r lies in [0, 3p).
-  uint32_t rr[13];
-  uint32_t borrow = 0;
+  // rr = (z mod b^13) - r2 mod b^13 is the true r = z - q3 p. With
+  // z = x y < p^2, q1 = z / b^11 + f1 and mu = b^24 / p + f2 (f1, f2 in
+  // [0, 1)), q1 mu / b^13 falls short of z / p by less than
+  // (q1 + mu + 1) / b^13 < 2^-5, so q3 >= floor(z / p) - 1 and r < 2p:
+  // one conditional subtraction of p makes it canonical.
+  uint32_t rr[kWords], d[kWords];
+  sub_words(z, r2, rr);
+  const uint32_t below_p = sub_words(rr, kPw, d);
 #pragma unroll
-  for (int k = 0; k < 13; ++k) {
-    const uint64_t t = static_cast<uint64_t>(z[k]) - r2[k] - borrow;
-    rr[k] = static_cast<uint32_t>(t);
-    borrow = static_cast<uint32_t>(t >> 63);
-  }
-  sub_p_if_ge(rr);
-  sub_p_if_ge(rr);
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) r[k] = rr[k];
+  for (int k = 0; k < kWords; ++k) r[k] = below_p ? rr[k] : d[k];
 }
 
-// One element of each kernel. a/b point at the element's limb 0, with the
-// given limb strides; out points at the element's limb 0 of an (32, m) array.
-__device__ __forceinline__ void mul_one(const int32_t* __restrict__ a, int64_t als,
-                                        const int32_t* __restrict__ b, int64_t bls,
-                                        int32_t* __restrict__ out, int64_t m) {
-  uint32_t x[kWords], y[kWords], r[kWords];
-  load_words(a, als, x);
-  load_words(b, bls, y);
-  mul_mod_words(x, y, r);
-  store_words(out, m, r);
+// Thread `gid` of a multiply launch with G threads per element: element
+// gid / G, rank gid % G. The ranks of a last group past the end (and the
+// threads past it) read the last element, so every lane of the warp takes
+// part in the exchanges, and store nothing.
+template <int G, class Lanes>
+FQ_FN void mul_thread(const Lanes& lanes, int64_t gid, const int32_t* __restrict__ a,
+                      int64_t als, int64_t aes, const int32_t* __restrict__ b, int64_t bls,
+                      int64_t bes, int32_t* __restrict__ out, int64_t m) {
+  constexpr int W = kWords / G;
+  const int t = static_cast<int>(gid % G);
+  const int64_t e = gid / G;
+  const bool live = e < m;
+  const int64_t src = live ? e : m - 1;
+  uint32_t x[W], y_own[W], y[kWords], r[kWords];
+  load_share<G>(a + src * aes, als, t, x);
+  load_share<G>(b + src * bes, bls, t, y_own);
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) y[j] = lanes.shfl(y_own[j % W], j / W);
+  mul_mod_words<G>(lanes, t, x, y, r);
+  if (live) store_share<G>(out + e, m, t, r);
 }
 
-// v (33 limbs, canonical) -> v - p if v >= p, written as 32 limbs.
-__device__ __forceinline__ void store_sub_p_if_ge(int32_t* __restrict__ out, int64_t m,
-                                                  const int32_t v[kLimbs + 1]) {
+// The carries into a group's blocks of limbs, from each rank's generate bit
+// (its block carries out by itself) and propagate bit (it passes a carry in
+// on): the binary sum (g | p) + g carries exactly where the blocks do, so
+// bit t of the result is the carry into rank t, and bit G the carry out of
+// the group.
+template <class Lanes>
+FQ_FN uint32_t group_carries(const Lanes& lanes, bool generate, bool propagate) {
+  const uint32_t g = lanes.ballot(generate);
+  const uint32_t x = g | lanes.ballot(propagate);
+  return (x + g) ^ x ^ g;
+}
+
+// Thread `gid` of an add launch with G threads per element: rank t adds its
+// L = 32 / G limbs with a serial sweep, the group resolves the carries
+// between ranks (group_carries), then subtracts p the same way with
+// borrows; the borrow out of the top decides v - p or v for the whole group.
+template <int G, class Lanes>
+FQ_FN void add_thread(const Lanes& lanes, int64_t gid, const int32_t* __restrict__ a,
+                      int64_t als, int64_t aes, const int32_t* __restrict__ b, int64_t bls,
+                      int64_t bes, int32_t* __restrict__ out, int64_t m) {
+  constexpr int L = kLimbs / G;
+  const int t = static_cast<int>(gid % G);
+  const int64_t e = gid / G;
+  const bool live = e < m;
+  const int64_t src = live ? e : m - 1;
+  const int64_t first = static_cast<int64_t>(t) * L;
+  a += src * aes + first * als;
+  b += src * bes + first * bls;
+  int32_t pk[L];  // this rank's limbs of p
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    pk[i] = kP12[i];  // kP12[t L + i], without indexing by t
+#pragma unroll
+    for (int u = 1; u < G; ++u) pk[i] = t == u ? kP12[u * L + i] : pk[i];
+  }
+
+  // v = a + b in this rank's limbs, carry in 0; then with the group's carry
+  int32_t v[L];
+  int32_t carry = 0;
+  bool ones = true;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const int32_t s = FQ_LDG(a + i * als) + FQ_LDG(b + i * bls) + carry;
+    v[i] = s & kMask;
+    carry = s >> kLimbBits;
+    ones = ones && v[i] == kMask;
+  }
+  carry = static_cast<int32_t>((group_carries(lanes, carry != 0, ones) >> t) & 1u);
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const int32_t s = v[i] + carry;
+    v[i] = s & kMask;
+    carry = s >> kLimbBits;
+  }
+
+  // d = v - p, borrow in 0; then with the group's borrow. v < 2p < 2^384,
+  // so the borrow out of the top says v < p.
+  int32_t d[L];
+  int32_t borrow = 0;
+  bool zeros = true;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const int32_t s = v[i] - pk[i] - borrow;
+    borrow = s < 0 ? 1 : 0;
+    d[i] = s + (borrow << kLimbBits);
+    zeros = zeros && d[i] == 0;
+  }
+  const uint32_t borrows = group_carries(lanes, borrow != 0, zeros);
+  borrow = static_cast<int32_t>((borrows >> t) & 1u);
+  const bool keep = ((borrows >> G) & 1u) != 0;  // v < p
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const int32_t s = d[i] - borrow;
+    borrow = s < 0 ? 1 : 0;
+    d[i] = s + (borrow << kLimbBits);
+  }
+  if (!live) return;
+  out += e + first * m;
+#pragma unroll
+  for (int i = 0; i < L; ++i) out[i * m] = keep ? v[i] : d[i];
+}
+
+// Thread `gid` of a sub launch: one element, in 12-bit limbs.
+FQ_FN void sub_thread(int64_t gid, const int32_t* __restrict__ a, int64_t als, int64_t aes,
+                      const int32_t* __restrict__ b, int64_t bls, int64_t bes,
+                      int32_t* __restrict__ out, int64_t m) {
+  if (gid >= m) return;
+  a += gid * aes;
+  b += gid * bes;
+  out += gid;
+  // a - b + p, in (0, 2p): per-limb values may be negative; the arithmetic
+  // shift floors, so each carry is in {-1, 0, 1} and & kMask re-canonicalises.
+  int32_t v[kLimbs + 1];
+  int32_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < kLimbs; ++i) {
+    const int32_t t = FQ_LDG(a + i * als) - FQ_LDG(b + i * bls) + kP12[i] + carry;
+    v[i] = t & kMask;
+    carry = t >> kLimbBits;
+  }
+  v[kLimbs] = carry;
+  // v - p if v >= p
   int32_t d[kLimbs + 1];
   int32_t borrow = 0;
 #pragma unroll
@@ -215,64 +415,72 @@ __device__ __forceinline__ void store_sub_p_if_ge(int32_t* __restrict__ out, int
   for (int i = 0; i < kLimbs; ++i) out[i * m] = borrow ? v[i] : d[i];
 }
 
-__device__ __forceinline__ void add_one(const int32_t* __restrict__ a, int64_t als,
-                                        const int32_t* __restrict__ b, int64_t bls,
-                                        int32_t* __restrict__ out, int64_t m) {
-  int32_t v[kLimbs + 1];
-  int32_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const int32_t t = __ldg(a + i * als) + __ldg(b + i * bls) + carry;
-    v[i] = t & kMask;
-    carry = t >> kLimbBits;
+}  // namespace
+
+#ifdef __CUDACC__
+
+namespace {
+
+// The lanes of a group of G are aligned within a warp (G divides 32), and
+// every lane of the warp runs the body, so full-warp exchanges stay exact.
+template <int G>
+struct WarpLanes {
+  __device__ __forceinline__ uint32_t shfl(uint32_t v, int rank) const {
+    return __shfl_sync(0xffffffffu, v, rank, G);
   }
-  v[kLimbs] = carry;
-  store_sub_p_if_ge(out, m, v);
+  __device__ __forceinline__ uint32_t shfl_xor(uint32_t v, int d) const {
+    return __shfl_xor_sync(0xffffffffu, v, d, G);
+  }
+  // bit r: rank r's predicate
+  __device__ __forceinline__ uint32_t ballot(bool p) const {
+    const unsigned base = threadIdx.x & 31u & ~static_cast<unsigned>(G - 1);
+    return (__ballot_sync(0xffffffffu, p) >> base) & ((1u << G) - 1u);
+  }
+};
+
+__device__ __forceinline__ int64_t global_thread() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
 }
 
-__device__ __forceinline__ void sub_one(const int32_t* __restrict__ a, int64_t als,
-                                        const int32_t* __restrict__ b, int64_t bls,
-                                        int32_t* __restrict__ out, int64_t m) {
-  // a - b + p, in (0, 2p): per-limb values may be negative; the arithmetic
-  // shift floors, so each carry is in {-1, 0, 1} and & kMask re-canonicalises.
-  int32_t v[kLimbs + 1];
-  int32_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const int32_t t = __ldg(a + i * als) - __ldg(b + i * bls) + kP12[i] + carry;
-    v[i] = t & kMask;
-    carry = t >> kLimbBits;
-  }
-  v[kLimbs] = carry;
-  store_sub_p_if_ge(out, m, v);
+#define FQ_ARGS                                                                     \
+  const int32_t *__restrict__ a, int64_t als, int64_t aes, const int32_t *__restrict__ b, \
+      int64_t bls, int64_t bes, int32_t *__restrict__ out, int64_t m
+
+__global__ void __launch_bounds__(kMaxThreads) fq_mul_mod_kernel(FQ_ARGS) {
+  mul_thread<1>(OneLane{}, global_thread(), a, als, aes, b, bls, bes, out, m);
 }
 
-#define FQ_KERNEL(NAME, ONE)                                                          \
-  __global__ void __launch_bounds__(kThreads)                                          \
-      NAME(const int32_t* __restrict__ a, int64_t als, int64_t aes,                   \
-           const int32_t* __restrict__ b, int64_t bls, int64_t bes,                   \
-           int32_t* __restrict__ out, int64_t m) {                                    \
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;      \
-    if (t >= m) return;                                                                \
-    ONE(a + t * aes, als, b + t * bes, bls, out + t, m);                               \
-  }
+__global__ void __launch_bounds__(kMaxThreads) fq_mul_mod_group_kernel(FQ_ARGS) {
+  mul_thread<kMulGroup>(WarpLanes<kMulGroup>{}, global_thread(), a, als, aes, b, bls, bes, out,
+                        m);
+}
 
-FQ_KERNEL(fq_mul_mod_kernel, mul_one)
-FQ_KERNEL(fq_add_mod_kernel, add_one)
-FQ_KERNEL(fq_sub_mod_kernel, sub_one)
+__global__ void __launch_bounds__(kMaxThreads) fq_add_mod_kernel(FQ_ARGS) {
+  add_thread<kAddGroup>(WarpLanes<kAddGroup>{}, global_thread(), a, als, aes, b, bls, bes, out,
+                        m);
+}
 
-#undef FQ_KERNEL
+__global__ void __launch_bounds__(kMaxThreads) fq_sub_mod_kernel(FQ_ARGS) {
+  sub_thread(global_thread(), a, als, aes, b, bls, bes, out, m);
+}
 
-using KernelFn = void (*)(const int32_t*, int64_t, int64_t, const int32_t*, int64_t,
-                          int64_t, int32_t*, int64_t);
+__global__ void __launch_bounds__(kMaxThreads) fq_empty_kernel(FQ_ARGS) {}
 
-int launch(KernelFn kernel, const void* a, int64_t als, int64_t aes, const void* b,
-           int64_t bls, int64_t bes, void* out, int64_t m, int device, void* stream) {
+#undef FQ_ARGS
+
+using KernelFn = void (*)(const int32_t*, int64_t, int64_t, const int32_t*, int64_t, int64_t,
+                          int32_t*, int64_t);
+
+int launch(KernelFn kernel, const void* a, int64_t als, int64_t aes, const void* b, int64_t bls,
+           int64_t bes, void* out, int64_t m, int group, int threads, int64_t blocks, int device,
+           void* stream) {
   if (m <= 0) return static_cast<int>(cudaSuccess);
+  if (kernel == nullptr || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      blocks < 1 || blocks > 0x7FFFFFFF || blocks * threads < m * group)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (m + kThreads - 1) / kThreads;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(a), als, aes, static_cast<const int32_t*>(b), bls, bes,
       static_cast<int32_t*>(out), m);
   return static_cast<int>(cudaGetLastError());
@@ -283,22 +491,27 @@ int launch(KernelFn kernel, const void* a, int64_t als, int64_t aes, const void*
 // ---- launchers
 // a, b: int32 limb planes on `device`; limb i of element t is at
 // a[i * als + t * aes] (aes = 0 broadcasts one element over the batch).
-// out: (32, m) int32, contiguous. stream: a cudaStream_t of that device.
-// Returns cudaGetLastError() (or the error of selecting the device).
-extern "C" int fq_mul_mod(const void* a, int64_t als, int64_t aes, const void* b,
-                          int64_t bls, int64_t bes, void* out, int64_t m, int device,
-                          void* stream) {
-  return launch(fq_mul_mod_kernel, a, als, aes, b, bls, bes, out, m, device, stream);
-}
+// out: (32, m) int32, contiguous. group: threads per element (1 or
+// kMulGroup for the multiply, kAddGroup for the add, 1 for sub); threads: per block, a multiple of 32 up to
+// kMaxThreads; blocks * threads must cover m * group. stream: a
+// cudaStream_t of that device. Returns cudaErrorInvalidValue for a
+// geometry the kernel does not take, else cudaGetLastError() (or the error
+// of selecting the device).
+#define FQ_LAUNCHER(NAME, KERNEL)                                                           \
+  extern "C" int NAME(const void* a, int64_t als, int64_t aes, const void* b, int64_t bls,  \
+                      int64_t bes, void* out, int64_t m, int group, int threads,            \
+                      int64_t blocks, int device, void* stream) {                           \
+    return launch(KERNEL, a, als, aes, b, bls, bes, out, m, group, threads, blocks, device, \
+                  stream);                                                                  \
+  }
 
-extern "C" int fq_add_mod(const void* a, int64_t als, int64_t aes, const void* b,
-                          int64_t bls, int64_t bes, void* out, int64_t m, int device,
-                          void* stream) {
-  return launch(fq_add_mod_kernel, a, als, aes, b, bls, bes, out, m, device, stream);
-}
+FQ_LAUNCHER(fq_mul_mod, group == 1           ? fq_mul_mod_kernel
+                        : group == kMulGroup ? fq_mul_mod_group_kernel
+                                             : nullptr)
+FQ_LAUNCHER(fq_add_mod, group == kAddGroup ? fq_add_mod_kernel : nullptr)
+FQ_LAUNCHER(fq_sub_mod, group == 1 ? fq_sub_mod_kernel : nullptr)
+FQ_LAUNCHER(fq_empty, fq_empty_kernel)
 
-extern "C" int fq_sub_mod(const void* a, int64_t als, int64_t aes, const void* b,
-                          int64_t bls, int64_t bes, void* out, int64_t m, int device,
-                          void* stream) {
-  return launch(fq_sub_mod_kernel, a, als, aes, b, bls, bes, out, m, device, stream);
-}
+#undef FQ_LAUNCHER
+
+#endif  // __CUDACC__

@@ -12,7 +12,12 @@ Layers:
 
 - :func:`mul_mod`, :func:`add_mod`, :func:`sub_mod` — the wrappers.  On CUDA
   tensors each launches its kernel (or raises) and adds one to its entry of
-  :data:`kernel_launches`; on CPU tensors each runs its plain version.
+  :data:`kernel_launches`; on CPU tensors each runs its plain version.  The
+  launch geometry comes from :func:`_geometry`: ``mul_mod`` runs its group
+  body (``MUL_GROUP`` threads per element) below ``MUL_GROUP_THRESHOLD``
+  lanes and its one-thread body from there on; ``add_mod`` runs
+  ``ADD_GROUP`` threads per element; each body has its block size in
+  ``BLOCK_THREADS``.
 - :func:`mul_mod_torch`, :func:`add_mod_torch`, :func:`sub_mod_torch` — the
   plain versions, tensor ops on the operands' own device.  They compute the
   same canonical residues by another exact method, written to cost few
@@ -200,6 +205,33 @@ def sub_mod_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 _PLAIN = {"mul_mod": mul_mod_torch, "add_mod": add_mod_torch, "sub_mod": sub_mod_torch}
 
+#: Threads per element of ``fq_mul_mod``'s group body (``kMulGroup`` in
+#: ``csrc/fq.cu``): each thread takes a share of every product's rows.
+MUL_GROUP = 2
+#: ``mul_mod`` runs its group body below this many lanes and its one-thread
+#: body from there on, where the one-thread body fills the card and is held
+#: by bytes (``chip_smoke.py`` phase 9 times both bodies; ``PERF.md``).
+MUL_GROUP_THRESHOLD = 9216
+#: Threads per element of ``fq_add_mod`` (``kAddGroup``): each adds 16 limbs.
+ADD_GROUP = 2
+#: Threads per block of each kernel (both of mul_mod's bodies).  Small
+#: blocks spread the paths' launches (2,000-25,000 lanes) over the card's
+#: 132 SMs; sub keeps its 256.
+BLOCK_THREADS = {"mul_mod": 64, "add_mod": 128, "sub_mod": 256}
+
+
+def _geometry(name: str, m: int) -> tuple[int, int, int]:
+    """``(threads per element, threads per block, blocks)`` of the launch of
+    kernel ``name`` over ``m`` lanes: thread ``g`` takes element
+    ``g // group``; the last block's threads past ``m * group`` store
+    nothing."""
+    if name == "mul_mod":
+        group = MUL_GROUP if m < MUL_GROUP_THRESHOLD else 1
+    else:
+        group = ADD_GROUP if name == "add_mod" else 1
+    threads = BLOCK_THREADS[name]
+    return group, threads, -(-m * group // threads)
+
 
 @functools.cache
 def _kernel(name: str):
@@ -207,7 +239,9 @@ def _kernel(name: str):
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
@@ -226,12 +260,10 @@ def _operand(x: torch.Tensor, shape: tuple, m: int):
     return x, m, 1
 
 
-def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    shape = _check(a, b)
-    if a.device.type == "cpu":
-        return _PLAIN[name](a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
+def _run(name: str, a: torch.Tensor, b: torch.Tensor, shape: tuple,
+         geometry: tuple[int, int, int]) -> torch.Tensor:
+    """Launch ``fq_<name>`` on CUDA operands of broadcast ``shape`` with the
+    given geometry; raises if the launch did not run."""
     m = math.prod(shape[1:])
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     if m == 0:
@@ -240,10 +272,22 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     xb, bls, bes = _operand(b, shape, m)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = _kernel(name)(xa.data_ptr(), als, aes, xb.data_ptr(), bls, bes, out.data_ptr(), m,
-                       a.device.index or 0, stream)
+                       *geometry, a.device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"fq {name} kernel launch failed with CUDA error {rc}")
-    kernel_launches[name] += 1
+    return out
+
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    shape = _check(a, b)
+    if a.device.type == "cpu":
+        return _PLAIN[name](a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    m = math.prod(shape[1:])
+    out = _run(name, a, b, shape, _geometry(name, m))
+    if m:
+        kernel_launches[name] += 1
     return out
 
 

@@ -157,11 +157,23 @@ def _cu_words(name: str) -> list[int]:
     return values
 
 
+def _cu_int(name: str) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);", _CU.read_text())
+    assert m, f"{name} not found in {_CU.name}"
+    return int(m.group(1))
+
+
 def test_cuda_constants_match_python():
     assert _cu_words("kP12") == [int(v) for v in BI.to_limbs(P)]
     assert _cu_words("kPw") == [(P >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
     mu = (1 << 768) // P
     assert _cu_words("kMu") == [(mu >> (32 * i)) & 0xFFFFFFFF for i in range(13)]
+    # the launch geometry the wrapper computes must suit the kernels
+    assert _cu_int("kMulGroup") == BP.MUL_GROUP and 32 % BP.MUL_GROUP == 0
+    assert _cu_int("kLimbs") % BP.MUL_GROUP == 0  # each rank stores whole limbs
+    assert (_cu_int("kLimbs"), _cu_int("kLimbBits"), _cu_int("kWords")) == (32, 12, 12)
+    for threads in BP.BLOCK_THREADS.values():
+        assert threads % 32 == 0 and threads <= _cu_int("kMaxThreads")
 
 
 @pytest.mark.parametrize(
@@ -207,14 +219,19 @@ def test_port_imports_without_jax():
 def test_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py runs this check on the card")
-    xs, ys = _tile_pair()
-    a = torch.from_numpy(BP.to_planes(xs)).cuda()
-    b = torch.from_numpy(BP.to_planes(ys)).cuda()
-    const = torch.from_numpy(BI.to_limbs(7)[:, None]).cuda()
-    for name in KERNELS:
-        for rhs in (b, const):
-            before = BP.kernel_launches[name]
-            got = getattr(BP, name)(a, rhs)
-            torch.cuda.synchronize()
-            assert BP.kernel_launches[name] == before + 1
-            assert torch.equal(got, BP._PLAIN[name](a, rhs))
+    # the tile, and lane counts on both sides of mul_mod's group threshold
+    t = BP.MUL_GROUP_THRESHOLD
+    for n in (1024, t - 1, t + 1):
+        xs, ys = _values(n, 81 + n), _values(n, 82 + n, edges_first=False)
+        if n == 1024:
+            xs, ys = _tile_pair()
+        a = torch.from_numpy(BP.to_planes(xs)).cuda()
+        b = torch.from_numpy(BP.to_planes(ys)).cuda()
+        const = torch.from_numpy(BI.to_limbs(7)[:, None]).cuda()
+        for name in KERNELS:
+            for lhs, rhs in ((a, b), (a, const), (const, a)):
+                before = BP.kernel_launches[name]
+                got = getattr(BP, name)(lhs, rhs)
+                torch.cuda.synchronize()
+                assert BP.kernel_launches[name] == before + 1
+                assert torch.equal(got, BP._PLAIN[name](lhs, rhs))
