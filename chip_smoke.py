@@ -15,7 +15,8 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
 3. the state-root leg: ``BeaconState.hash_tree_root`` of a mainnet-preset
    state with 1,000,000 seeded validators through
    ``install_device_backend()``, cold and warm, each equal to the hashlib
-   root, with the SHA-256 launch count read around each root;
+   root, with the SHA-256 launch count read around each root and the node
+   count of every launch of a third root recorded;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -47,9 +48,14 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    MSM launch them with (launch-weighted median and 90th percentile): each
    against its plain version there, bit for bit, with a full and a
    broadcast (32, 1) right operand, then timed beside an empty kernel
-   launched with the same grid (what a bare launch costs); and
+   launched with the same grid (what a bare launch costs);
    ``mul_mod``'s two bodies, each held against the plain version and timed,
    from 4,072 lanes to 2^20, which sets ``MUL_GROUP_THRESHOLD``;
+   ``sub_mod`` at 1, 2 and 4 threads per element in 64- and 128-thread
+   blocks, each held and timed from 2,048 lanes to 2^20, which sets
+   ``SUB_GROUP`` and its block size; and the SHA-256 kernel at the median
+   and 90th-percentile node counts of a root's launches, held against its
+   plain version and timed beside a bare launch and its bound;
 10. one JSON line of per-kernel numbers, then the device line last.
 
 Every path of phases 3-8 is driven with the kernels' launch counts set to 0
@@ -61,6 +67,7 @@ exits nonzero without a card.  Longer records land in
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -82,6 +89,10 @@ TIMED_SIZES = (1 << 20, 8_000_000)
 FQ_SIZES = (1, 7, 33, 1024, 4072, 20360, 1 << 20)  # the last is timed
 # lane counts at which mul_mod's two bodies are timed against each other
 MUL_SWEEP = (4072, 8192, 9216, 10240, 12288, 16384, 20360, 65536, 262144, 1 << 20)
+# lane counts and (threads per element, threads per block) of sub_mod's sweep:
+# the sign flush's p50, the drain's p50 and p90, and 2^20
+SUB_SWEEP = (2048, 4072, 6144, 16288, 1 << 20)
+SUB_BODIES = tuple((g, t) for g in (1, 2, 4) for t in (64, 128))
 FQ_KERNELS = ("mul_mod", "add_mod", "sub_mod")
 # the drain of scripts/bench_chain.py:60-67 (BASELINE.json "128 Attestations
 # x 2048-validator committees"): 2 x 127 messages x 16 aggregates
@@ -154,6 +165,16 @@ def _sass_opcodes(lib: Path, kernel: str) -> Counter:
     body = next(s for s in sections[1:] if kernel in s.splitlines()[0])
     ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", body)
     return Counter(op for op in ops if op != "NOP")
+
+
+def _fq_symbol(name: str, group: int) -> str:
+    """Fragment of the SASS symbol of the body ``fq_<name>`` runs with
+    ``group`` threads per element (sub's kernel is a template on it)."""
+    if name == "sub_mod":
+        return f"fq_sub_mod_kernelILi{group}E"
+    if name == "mul_mod" and group > 1:
+        return "fq_mul_mod_group_kernel"
+    return f"fq_{name}_kernel"
 
 
 def _op_ms(opcodes: Counter, n: int, clock_mhz: float) -> float:
@@ -868,30 +889,29 @@ def kzg_phase(dev, rng, record: dict, setup) -> bytes:
     return blobs[0]
 
 
-class _LaneRecorder:
-    """Counts each field-kernel launch by its lane count while active, by
-    wrapping the wrappers' shared launch function."""
+@contextlib.contextmanager
+def _recording(module, attr: str, key):
+    """Counts each call of ``module.attr`` by ``key(*args)`` while active
+    (the wrappers look each other up through their module, so every call of
+    the path is seen); yields the Counter."""
+    hist = Counter()
+    real = getattr(module, attr)
 
-    def __enter__(self):
-        import torch
+    def recording(*args):
+        hist[key(*args)] += 1
+        return real(*args)
 
-        from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+    setattr(module, attr, recording)
+    try:
+        yield hist
+    finally:
+        setattr(module, attr, real)
 
-        self.hist = {name: Counter() for name in FQ_KERNELS}
-        self._real = real = BP._launch
 
-        def recording(name, a, b):
-            shape = torch.broadcast_shapes(a.shape, b.shape)
-            self.hist[name][math.prod(shape[1:])] += 1
-            return real(name, a, b)
+def _fq_lanes(name, a, b) -> tuple[str, int]:
+    import torch
 
-        BP._launch = recording
-        return self
-
-    def __exit__(self, *exc):
-        from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
-
-        BP._launch = self._real
+    return name, math.prod(torch.broadcast_shapes(a.shape, b.shape)[1:])
 
 
 def _weighted_quantile(hist: Counter, q: float) -> int:
@@ -946,15 +966,16 @@ def path_shape_timings(dev, rng, paths: dict) -> tuple[int, dict]:
     max_err = 0
     out = {}
     for path, fn in paths.items():
-        with _LaneRecorder() as rec:
+        with _recording(BP, "_launch", _fq_lanes) as hist:
             fn()
             _sync()
         out[path] = {}
         for name in FQ_KERNELS:
             kernel = getattr(BP, name)
-            row = dict(launches=sum(rec.hist[name].values()))
+            lanes = Counter({m: c for (n, m), c in hist.items() if n == name})
+            row = dict(launches=sum(lanes.values()))
             for tag, q in (("p50", 0.5), ("p90", 0.9)):
-                m = _weighted_quantile(rec.hist[name], q)
+                m = _weighted_quantile(lanes, q)
                 a = _fq_operands(rng, m, dev, [])
                 b = _fq_operands(rng, m, dev, [])
                 for rhs in (b, _fq_operands(rng, 1, dev, [])):
@@ -986,47 +1007,83 @@ def path_shape_timings(dev, rng, paths: dict) -> tuple[int, dict]:
     return max_err, out
 
 
-def mul_body_sweep(dev, rng) -> tuple[int, dict]:
-    """Phase 9, last: mul_mod's group body and one-thread body at each of
-    MUL_SWEEP lane counts, each held against the plain version there and
-    timed (profiler device time per launch), beside the byte bound and a
-    bare launch of each grid.  Where the one-thread body overtakes the group
-    body sets ``MUL_GROUP_THRESHOLD``.  Returns (max abs error, rows)."""
+def body_sweep(dev, rng, name: str, sizes: tuple, bodies: dict) -> tuple[int, dict]:
+    """Phase 9: kernel ``name``'s bodies (``{label: (threads per element,
+    threads per block)}``) at each of ``sizes`` lanes, each held against the
+    plain version there bit for bit and timed (profiler device time per
+    launch), beside the byte bound and a bare launch of each grid.  Where
+    mul_mod's one-thread body overtakes its group body sets
+    ``MUL_GROUP_THRESHOLD``; sub_mod's sweep picks ``SUB_GROUP`` and its
+    block size.  Returns (max abs error, rows)."""
     import torch
 
     from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
 
     max_err = 0
     rows = {}
-    for m in MUL_SWEEP:
+    for m in sizes:
         a, b = _fq_operands(rng, m, dev, []), _fq_operands(rng, m, dev, [])
-        plain = BP._PLAIN["mul_mod"](a, b)
+        plain = BP._PLAIN[name](a, b)
         row = dict(byte_bound_us=3 * 128 * m / HBM_BYTES_PER_S * 1e6)
-        for body, group in (("group", BP.MUL_GROUP), ("one-thread", 1)):
-            threads = BP.BLOCK_THREADS["mul_mod"]
+        for label, (group, threads) in bodies.items():
             geometry = (group, threads, -(-m * group // threads))
-            got = BP._run("mul_mod", a, b, (32, m), geometry)
+            got = BP._run(name, a, b, (32, m), geometry)
             torch.cuda.synchronize()
             err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max().item())
             max_err = max(max_err, err)
             if err or not torch.equal(got, plain):
-                raise AssertionError(f"mul_mod {body} body != plain version at N={m}")
-            us, _ = _device_us(lambda: BP._run("mul_mod", a, b, (32, m), geometry), 100,
-                               "fq_mul_mod")
+                raise AssertionError(f"{name} {label} body != plain version at N={m}")
+            us, _ = _device_us(lambda: BP._run(name, a, b, (32, m), geometry), 100, f"fq_{name}")
             bare, _ = _device_us(lambda: BP._run("empty", a, b, (32, m), geometry), 100,
                                  "fq_empty")
-            row[body] = dict(device_us=us, bare_launch_us=bare)
-        row["wrapper_body"] = "group" if BP._geometry("mul_mod", m)[0] > 1 else "one-thread"
+            row[label] = dict(device_us=us, bare_launch_us=bare)
+        wrapper = BP._geometry(name, m)[:2]
+        row["wrapper_body"] = next((label for label, body in bodies.items() if body == wrapper),
+                                   None)
         rows[m] = row
-        print(f"mul_mod at {m} lanes: group body {row['group']['device_us']:.3f} us, one-thread "
-              f"body {row['one-thread']['device_us']:.3f} us (bare launches "
-              f"{row['group']['bare_launch_us']:.3f} / {row['one-thread']['bare_launch_us']:.3f} "
-              f"us), byte bound {row['byte_bound_us']:.3f} us; the wrapper runs the "
-              f"{row['wrapper_body']} body")
+        print(f"{name} at {m} lanes: " + ", ".join(
+            f"{label} {row[label]['device_us']:.3f} us (bare {row[label]['bare_launch_us']:.3f})"
+            for label in bodies) + f"; byte bound {row['byte_bound_us']:.3f} us; the wrapper runs "
+            f"the {row['wrapper_body']} body")
         del a, b, plain
-    print(f"mul_mod's bodies == plain version at {list(MUL_SWEEP)} lanes; threshold "
-          f"{BP.MUL_GROUP_THRESHOLD}")
+    print(f"{name}'s bodies == plain version at {list(sizes)} lanes")
     return max_err, rows
+
+
+def sha256_root_shapes(dev, hist: Counter, opcodes: Counter, clock_mhz: float) -> dict:
+    """Phase 9: the SHA-256 kernel at the launch-weighted median and 90th
+    percentile of the node counts one state root launches it with, held
+    against its plain version there, timed (profiler device time per
+    launch) beside a bare launch of the same grid (the field library's
+    empty kernel on 256-thread blocks, the SHA-256 launcher's) and the
+    bound: the larger of 96 bytes a node over the memory rate and phase 2's
+    SASS count over the issue rate."""
+    import torch
+
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+
+    row = dict(launches=sum(hist.values()), lanes=dict(sorted(hist.items())))
+    zero = torch.zeros((32, 1), dtype=torch.int32, device=dev)
+    for tag, q in (("p50", 0.5), ("p90", 0.9)):
+        n = _weighted_quantile(hist, q)
+        blocks = torch.randint(0, 256, (n, 64), dtype=torch.uint8, device=dev)
+        if not torch.equal(sops.sha256_nodes(blocks), sops.hash_blocks_torch(blocks)):
+            raise AssertionError(f"sha256 kernel != plain version at the root's {tag} ({n} nodes)")
+        device_us, _ = _device_us(lambda: sops.sha256_nodes(blocks), 200, "sha256_nodes")
+        geometry = (1, 256, -(-n // 256))
+        bare_us, _ = _device_us(lambda: BP._run("empty", zero, zero, (32, n), geometry), 200,
+                                "fq_empty")
+        byte_us = 96 * n / HBM_BYTES_PER_S * 1e6
+        op_us = _op_ms(opcodes, n, clock_mhz) * 1e3
+        row[tag] = dict(lanes=n, device_us=device_us, bare_launch_us=bare_us,
+                        bound_us=max(byte_us, op_us),
+                        bound_by="operations" if op_us >= byte_us else "bytes")
+    print(f"sha256 at the state root's shapes: {row['launches']} launches; " + "; ".join(
+        f"{tag} {r['lanes']} nodes: device {r['device_us']:.3f} us per launch, bare launch "
+        f"{r['bare_launch_us']:.3f} us, bound {r['bound_us']:.4f} us ({r['bound_by']})"
+        for tag, r in ((t, row[t]) for t in ("p50", "p90"))) + " (== plain version at both)")
+    return row
 
 
 T_START = time.perf_counter()
@@ -1041,6 +1098,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from lambda_ethereum_consensus_tpu_torch.config import mainnet_spec
     from lambda_ethereum_consensus_tpu_torch.ops import _build
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
     from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
     from lambda_ethereum_consensus_tpu_torch.ssz import HashlibBackend, set_hash_backend
 
@@ -1101,14 +1159,16 @@ def main() -> int:
 
     fq_err, fq_timings = check_fq_kernels(dev, rng)
     for name, t in fq_timings.items():
-        ops = _sass_opcodes(libs["fq"], f"fq_{name}_kernel")
-        t["op_ms"] = _op_ms(ops, FQ_SIZES[-1], clock_mhz)
+        group = BP._geometry(name, FQ_SIZES[-1])[0]
+        ops = _sass_opcodes(libs["fq"], _fq_symbol(name, group))
+        t["op_ms"] = _op_ms(ops, FQ_SIZES[-1] * group, clock_mhz)
         t["bound_ms"] = max(t["byte_ms"], t["op_ms"])
         alu = sum(c for op, c in ops.items() if op in _ALU_OPCODES)
         fma = sum(c for op, c in ops.items() if op in _FMA_OPCODES)
         print(f"{name} at N={FQ_SIZES[-1]}: kernel {t['kernel_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.2f} ms, bound {t['bound_ms']:.4f} ms (bytes {t['byte_ms']:.4f}, "
-              f"int ops {t['op_ms']:.4f}); SASS per lane: {sum(ops.values())} instructions, "
+              f"int ops {t['op_ms']:.4f}); SASS per thread ({group} per element): "
+              f"{sum(ops.values())} instructions, "
               f"{alu} on the ALU pipe, {fma} integer multiplies; {dict(ops.most_common(8))}")
     group_ops = _sass_opcodes(libs["fq"], "fq_mul_mod_group_kernel")
     print(f"mul_mod group body: SASS per thread {sum(group_ops.values())} instructions, "
@@ -1132,8 +1192,12 @@ def main() -> int:
     subtree_calls = backend.subtree_calls
     timed = _TimedBackend(backend)
     t0 = time.perf_counter()
-    timed_root = state.hash_tree_root(spec, backend=timed)
+    with _recording(sops, "sha256_nodes", lambda blocks: int(blocks.shape[0])) as sha_lanes:
+        timed_root = state.hash_tree_root(spec, backend=timed)
     timed_s = time.perf_counter() - t0
+    if sum(sha_lanes.values()) != launches[1]:
+        raise AssertionError(f"recorded {sum(sha_lanes.values())} SHA-256 launches in a root, "
+                             f"counted {launches[1]}")
     set_hash_backend(HashlibBackend())
     t0 = time.perf_counter()
     reference = state.hash_tree_root(spec)
@@ -1182,8 +1246,16 @@ def main() -> int:
         "KZG MSM": lambda: K.blob_to_commitment(blob, setup, device=dev),
     }
     path_err, record["path_shapes"] = path_shape_timings(dev, rng, paths)
-    sweep_err, record["mul_body_sweep"] = mul_body_sweep(dev, rng)
-    fq_err = max(fq_err, path_err, sweep_err)
+    mul_err, record["mul_body_sweep"] = body_sweep(
+        dev, rng, "mul_mod", MUL_SWEEP,
+        {"group": (BP.MUL_GROUP, BP.BLOCK_THREADS["mul_mod"]),
+         "one-thread": (1, BP.BLOCK_THREADS["mul_mod"])})
+    print(f"MUL_GROUP_THRESHOLD {BP.MUL_GROUP_THRESHOLD}")
+    sub_err, record["sub_body_sweep"] = body_sweep(
+        dev, rng, "sub_mod", SUB_SWEEP, {f"g{g} t{t}": (g, t) for g, t in SUB_BODIES})
+    print(f"SUB_GROUP {BP.SUB_GROUP}, {BP.BLOCK_THREADS['sub_mod']}-thread blocks")
+    fq_err = max(fq_err, path_err, mul_err, sub_err)
+    record["sha256_root_shapes"] = sha256_root_shapes(dev, sha_lanes, opcodes, clock_mhz)
 
     # ---- phase 10: per-kernel numbers, then the device line
     big_n = TIMED_SIZES[-1]

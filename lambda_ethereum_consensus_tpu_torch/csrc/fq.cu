@@ -21,12 +21,12 @@
 // - The lane counts the BLS paths launch with (2,000-25,000): latency. With
 //   one thread per element in 256-thread blocks a 4,072-lane multiply fills
 //   16 of 132 SMs and waits out one thread's chain of about 2,100 dependent
-//   instructions (5.5 us, against a 0.47 us byte bound); an add waits out
-//   two serial 33-limb sweeps (2.4 us at 6,144 lanes). An empty kernel on
-//   the same grid takes 0.8-1.3 us, the floor under both. Tensor cores, TMA
-//   and clusters do not serve a 381-bit carry chain over 384 bytes a lane;
-//   shared memory would only serve a transpose of the limb-major planes,
-//   which the loads below do not need.
+//   instructions (5.5 us, against a 0.47 us byte bound); an add or a sub
+//   waits out two serial 33-limb sweeps (2.4-2.5 us at 4,072-6,144 lanes).
+//   An empty kernel on the same grid takes 0.8-1.3 us, the floor under
+//   all of them. Tensor cores, TMA and clusters do not serve a 381-bit carry
+//   chain over 384 bytes a lane; shared memory would only serve a transpose
+//   of the limb-major planes, which the loads below do not need.
 // (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 9, recorded in PERF.md.)
 //
 // What the design does about it:
@@ -48,17 +48,27 @@
 //   A group of 2 beat groups of 1 and 4 at 4,072-8,192 lanes (2.9 us at
 //   4,072);
 //   from about 9,000 lanes the one-thread body is faster;
-// - add spreads an element over kAddGroup threads too, each adding its 16
-//   limbs with a serial sweep; the carries between the threads' blocks come
-//   from one __ballot_sync of generate and one of propagate bits
-//   (group_carries), then the subtraction of p runs the same way with
-//   borrows, and the borrow out of the top block picks v - p or v for the
-//   whole group;
+// - add and sub share one body (add_sub_thread) and spread an element over
+//   kAddGroup and kSubGroup threads, rank t holding limbs [t L, t L + L),
+//   L = 32 / G: each rank sweeps its L limbs, the carries between the
+//   ranks' blocks come from one __ballot_sync of generate and one of
+//   propagate bits (group_carries), and a second sweep adds them. The add
+//   forms a + b, then a + b - p with borrows, and keeps a + b when a borrow
+//   leaves the top (a + b < p); the sub forms a - b with borrows, then
+//   a - b + p with carries, and keeps a - b when no borrow left the top
+//   (a >= b). No 33rd limb is needed. Resolving each rank's chain with one
+//   integer add of its generate and pass bit words instead of the sweeps
+//   lost (585 instructions a thread against 444; 1.87 against 1.74 us at
+//   4,072 lanes in a one-off comparison, PERF.md): at these lane counts
+//   load latency and instruction issue bound the body, not the sweep's
+//   chain. In chip_smoke.py's sweep a group of 2 beats groups of 1 and 4
+//   from 6,144 lanes on; a group of 4 is up to 0.19 us faster at 2,048
+//   lanes and 0.35-0.57 us slower at 16,288. 128-thread blocks keep 77-82 %
+//   of the byte bound at 2^20 lanes (64: 74-77 %) and are within 0.08 us
+//   of 64 below, so the sub runs one geometry at every lane count; its
+//   launcher also takes groups of 1 and 4 for that sweep;
 // - blocks of 64 or 128 threads (the wrapper's choice) spread the paths'
 //   launches over the card's SMs;
-// - sub keeps its first body: one 33-limb carry sweep (arithmetic shifts for
-//   the signed sweep of a - b + p) and one conditional subtract of p, as
-//   the reference does, in 256-thread blocks;
 // - an operand whose batch axes are all broadcast (the (32, 1) constants of
 //   the tower and the ladders) is read with a lane stride of 0, so it is
 //   never materialised.
@@ -110,6 +120,9 @@ namespace {
 constexpr int kMaxThreads = 256;  // launch bound of every kernel
 constexpr int kMulGroup = 2;      // threads per element of the multiply's group body
 constexpr int kAddGroup = 2;      // threads per element of the add
+constexpr int kSubGroup = 2;      // threads per element of the sub, as the wrapper launches it
+static_assert(kSubGroup == 1 || kSubGroup == 2 || kSubGroup == 4,
+              "the sub's launcher takes groups of 1, 2 and 4");
 constexpr int kLimbs = 32;
 constexpr int kLimbBits = 12;
 constexpr int32_t kMask = (1 << kLimbBits) - 1;
@@ -312,14 +325,63 @@ FQ_FN uint32_t group_carries(const Lanes& lanes, bool generate, bool propagate) 
   return (x + g) ^ x ^ g;
 }
 
-// Thread `gid` of an add launch with G threads per element: rank t adds its
-// L = 32 / G limbs with a serial sweep, the group resolves the carries
-// between ranks (group_carries), then subtracts p the same way with
-// borrows; the borrow out of the top decides v - p or v for the whole group.
-template <int G, class Lanes>
-FQ_FN void add_thread(const Lanes& lanes, int64_t gid, const int32_t* __restrict__ a,
-                      int64_t als, int64_t aes, const int32_t* __restrict__ b, int64_t bls,
-                      int64_t bes, int32_t* __restrict__ out, int64_t m) {
+// r = x + y (kNeg false) or x - y (kNeg true) mod 2^384 over rank t's
+// L = 32 / G limbs, with the carries (borrows) resolved across the group;
+// returns the group's carry word of group_carries (bit G: the carry or
+// borrow out of the top). The rank sweeps its limbs with carry in 0, noting
+// whether its block carries out by itself and whether it would pass a carry
+// in on (all limbs 0xFFF; for a borrow, all 0); one pair of ballots gives
+// each rank its carry in, and a second sweep adds it.
+template <bool kNeg, int G, class Lanes>
+FQ_FN uint32_t add_limbs(const Lanes& lanes, int t, const int32_t* x, const int32_t* y,
+                         int32_t* r) {
+  constexpr int L = kLimbs / G;
+  int32_t c = 0;
+  bool pass = true;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    if (kNeg) {
+      const int32_t s = x[i] - y[i] - c;
+      c = s < 0 ? 1 : 0;
+      r[i] = s + (c << kLimbBits);
+      pass = pass && r[i] == 0;
+    } else {
+      const int32_t s = x[i] + y[i] + c;
+      r[i] = s & kMask;
+      c = s >> kLimbBits;
+      pass = pass && r[i] == kMask;
+    }
+  }
+  const uint32_t carries = group_carries(lanes, c != 0, pass);
+  c = static_cast<int32_t>((carries >> t) & 1u);
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    if (kNeg) {
+      const int32_t s = r[i] - c;
+      c = s < 0 ? 1 : 0;
+      r[i] = s + (c << kLimbBits);
+    } else {
+      const int32_t s = r[i] + c;
+      r[i] = s & kMask;
+      c = s >> kLimbBits;
+    }
+  }
+  return carries;
+}
+
+// Thread `gid` of an add (kSub false) or sub (kSub true) launch with G
+// threads per element: element gid / G, rank t = gid % G, which loads and
+// stores its L = 32 / G limbs. The add forms v = a + b (below 2p < 2^384)
+// and d = v - p, and keeps v when the borrow out of the top says v < p; the
+// sub forms v = a - b mod 2^384 and d = v + p mod 2^384, and keeps v when no
+// borrow left the top (a >= b). Either way the whole group takes one
+// decision. The ranks of a last group past the end (and the threads past
+// it) read the last element, so every lane of the warp takes part in the
+// ballots, and store nothing.
+template <bool kSub, int G, class Lanes>
+FQ_FN void add_sub_thread(const Lanes& lanes, int64_t gid, const int32_t* __restrict__ a,
+                          int64_t als, int64_t aes, const int32_t* __restrict__ b, int64_t bls,
+                          int64_t bes, int32_t* __restrict__ out, int64_t m) {
   constexpr int L = kLimbs / G;
   const int t = static_cast<int>(gid % G);
   const int64_t e = gid / G;
@@ -328,91 +390,37 @@ FQ_FN void add_thread(const Lanes& lanes, int64_t gid, const int32_t* __restrict
   const int64_t first = static_cast<int64_t>(t) * L;
   a += src * aes + first * als;
   b += src * bes + first * bls;
-  int32_t pk[L];  // this rank's limbs of p
+  int32_t x[L], y[L], pk[L];  // this rank's limbs of a, b and p
 #pragma unroll
   for (int i = 0; i < L; ++i) {
+    x[i] = FQ_LDG(a + i * als);
+    y[i] = FQ_LDG(b + i * bls);
     pk[i] = kP12[i];  // kP12[t L + i], without indexing by t
 #pragma unroll
     for (int u = 1; u < G; ++u) pk[i] = t == u ? kP12[u * L + i] : pk[i];
   }
-
-  // v = a + b in this rank's limbs, carry in 0; then with the group's carry
-  int32_t v[L];
-  int32_t carry = 0;
-  bool ones = true;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const int32_t s = FQ_LDG(a + i * als) + FQ_LDG(b + i * bls) + carry;
-    v[i] = s & kMask;
-    carry = s >> kLimbBits;
-    ones = ones && v[i] == kMask;
-  }
-  carry = static_cast<int32_t>((group_carries(lanes, carry != 0, ones) >> t) & 1u);
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const int32_t s = v[i] + carry;
-    v[i] = s & kMask;
-    carry = s >> kLimbBits;
-  }
-
-  // d = v - p, borrow in 0; then with the group's borrow. v < 2p < 2^384,
-  // so the borrow out of the top says v < p.
-  int32_t d[L];
-  int32_t borrow = 0;
-  bool zeros = true;
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const int32_t s = v[i] - pk[i] - borrow;
-    borrow = s < 0 ? 1 : 0;
-    d[i] = s + (borrow << kLimbBits);
-    zeros = zeros && d[i] == 0;
-  }
-  const uint32_t borrows = group_carries(lanes, borrow != 0, zeros);
-  borrow = static_cast<int32_t>((borrows >> t) & 1u);
-  const bool keep = ((borrows >> G) & 1u) != 0;  // v < p
-#pragma unroll
-  for (int i = 0; i < L; ++i) {
-    const int32_t s = d[i] - borrow;
-    borrow = s < 0 ? 1 : 0;
-    d[i] = s + (borrow << kLimbBits);
-  }
+  int32_t v[L], d[L];
+  const uint32_t first_out = add_limbs<kSub, G>(lanes, t, x, y, v);
+  const uint32_t second_out = add_limbs<!kSub, G>(lanes, t, v, pk, d);
+  const bool keep = kSub ? ((first_out >> G) & 1u) == 0 : ((second_out >> G) & 1u) != 0;
   if (!live) return;
   out += e + first * m;
 #pragma unroll
   for (int i = 0; i < L; ++i) out[i * m] = keep ? v[i] : d[i];
 }
 
-// Thread `gid` of a sub launch: one element, in 12-bit limbs.
-FQ_FN void sub_thread(int64_t gid, const int32_t* __restrict__ a, int64_t als, int64_t aes,
-                      const int32_t* __restrict__ b, int64_t bls, int64_t bes,
-                      int32_t* __restrict__ out, int64_t m) {
-  if (gid >= m) return;
-  a += gid * aes;
-  b += gid * bes;
-  out += gid;
-  // a - b + p, in (0, 2p): per-limb values may be negative; the arithmetic
-  // shift floors, so each carry is in {-1, 0, 1} and & kMask re-canonicalises.
-  int32_t v[kLimbs + 1];
-  int32_t carry = 0;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    const int32_t t = FQ_LDG(a + i * als) - FQ_LDG(b + i * bls) + kP12[i] + carry;
-    v[i] = t & kMask;
-    carry = t >> kLimbBits;
-  }
-  v[kLimbs] = carry;
-  // v - p if v >= p
-  int32_t d[kLimbs + 1];
-  int32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i <= kLimbs; ++i) {
-    const int32_t t = v[i] - (i < kLimbs ? kP12[i] : 0) - borrow;
-    borrow = t < 0 ? 1 : 0;
-    d[i] = t + (borrow << kLimbBits);
-  }
-  // borrow out of the top limb: v < p, keep v
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) out[i * m] = borrow ? v[i] : d[i];
+template <int G, class Lanes>
+FQ_FN void add_thread(const Lanes& lanes, int64_t gid, const int32_t* __restrict__ a,
+                      int64_t als, int64_t aes, const int32_t* __restrict__ b, int64_t bls,
+                      int64_t bes, int32_t* __restrict__ out, int64_t m) {
+  add_sub_thread<false, G>(lanes, gid, a, als, aes, b, bls, bes, out, m);
+}
+
+template <int G, class Lanes>
+FQ_FN void sub_thread(const Lanes& lanes, int64_t gid, const int32_t* __restrict__ a,
+                      int64_t als, int64_t aes, const int32_t* __restrict__ b, int64_t bls,
+                      int64_t bes, int32_t* __restrict__ out, int64_t m) {
+  add_sub_thread<true, G>(lanes, gid, a, als, aes, b, bls, bes, out, m);
 }
 
 }  // namespace
@@ -460,8 +468,14 @@ __global__ void __launch_bounds__(kMaxThreads) fq_add_mod_kernel(FQ_ARGS) {
                         m);
 }
 
+// One kernel per group size the sub takes (1, 2 or 4 threads per element).
+template <int G>
 __global__ void __launch_bounds__(kMaxThreads) fq_sub_mod_kernel(FQ_ARGS) {
-  sub_thread(global_thread(), a, als, aes, b, bls, bes, out, m);
+  if constexpr (G == 1) {
+    sub_thread<1>(OneLane{}, global_thread(), a, als, aes, b, bls, bes, out, m);
+  } else {
+    sub_thread<G>(WarpLanes<G>{}, global_thread(), a, als, aes, b, bls, bes, out, m);
+  }
 }
 
 __global__ void __launch_bounds__(kMaxThreads) fq_empty_kernel(FQ_ARGS) {}
@@ -492,8 +506,9 @@ int launch(KernelFn kernel, const void* a, int64_t als, int64_t aes, const void*
 // a, b: int32 limb planes on `device`; limb i of element t is at
 // a[i * als + t * aes] (aes = 0 broadcasts one element over the batch).
 // out: (32, m) int32, contiguous. group: threads per element (1 or
-// kMulGroup for the multiply, kAddGroup for the add, 1 for sub); threads: per block, a multiple of 32 up to
-// kMaxThreads; blocks * threads must cover m * group. stream: a
+// kMulGroup for the multiply, kAddGroup for the add, 1, 2 or 4 for the sub,
+// which the wrapper runs at kSubGroup); threads: per block, a multiple of 32
+// up to kMaxThreads; blocks * threads must cover m * group. stream: a
 // cudaStream_t of that device. Returns cudaErrorInvalidValue for a
 // geometry the kernel does not take, else cudaGetLastError() (or the error
 // of selecting the device).
@@ -509,7 +524,10 @@ FQ_LAUNCHER(fq_mul_mod, group == 1           ? fq_mul_mod_kernel
                         : group == kMulGroup ? fq_mul_mod_group_kernel
                                              : nullptr)
 FQ_LAUNCHER(fq_add_mod, group == kAddGroup ? fq_add_mod_kernel : nullptr)
-FQ_LAUNCHER(fq_sub_mod, group == 1 ? fq_sub_mod_kernel : nullptr)
+FQ_LAUNCHER(fq_sub_mod, group == 1   ? fq_sub_mod_kernel<1>
+                        : group == 2 ? fq_sub_mod_kernel<2>
+                        : group == 4 ? fq_sub_mod_kernel<4>
+                                     : nullptr)
 FQ_LAUNCHER(fq_empty, fq_empty_kernel)
 
 #undef FQ_LAUNCHER

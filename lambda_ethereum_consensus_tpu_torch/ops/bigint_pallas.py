@@ -16,7 +16,8 @@ Layers:
   launch geometry comes from :func:`_geometry`: ``mul_mod`` runs its group
   body (``MUL_GROUP`` threads per element) below ``MUL_GROUP_THRESHOLD``
   lanes and its one-thread body from there on; ``add_mod`` runs
-  ``ADD_GROUP`` threads per element; each body has its block size in
+  ``ADD_GROUP`` and ``sub_mod`` ``SUB_GROUP`` threads per element (one
+  shared body with carry lookahead); each body has its block size in
   ``BLOCK_THREADS``.
 - :func:`mul_mod_torch`, :func:`add_mod_torch`, :func:`sub_mod_torch` — the
   plain versions, tensor ops on the operands' own device.  They compute the
@@ -214,10 +215,13 @@ MUL_GROUP = 2
 MUL_GROUP_THRESHOLD = 9216
 #: Threads per element of ``fq_add_mod`` (``kAddGroup``): each adds 16 limbs.
 ADD_GROUP = 2
+#: Threads per element of ``fq_sub_mod`` (``kSubGroup``; its launcher also
+#: takes 1 and 4, which ``chip_smoke.py`` phase 9 sweeps).
+SUB_GROUP = 2
 #: Threads per block of each kernel (both of mul_mod's bodies).  Small
 #: blocks spread the paths' launches (2,000-25,000 lanes) over the card's
-#: 132 SMs; sub keeps its 256.
-BLOCK_THREADS = {"mul_mod": 64, "add_mod": 128, "sub_mod": 256}
+#: 132 SMs.
+BLOCK_THREADS = {"mul_mod": 64, "add_mod": 128, "sub_mod": 128}
 
 
 def _geometry(name: str, m: int) -> tuple[int, int, int]:
@@ -228,7 +232,7 @@ def _geometry(name: str, m: int) -> tuple[int, int, int]:
     if name == "mul_mod":
         group = MUL_GROUP if m < MUL_GROUP_THRESHOLD else 1
     else:
-        group = ADD_GROUP if name == "add_mod" else 1
+        group = ADD_GROUP if name == "add_mod" else SUB_GROUP
     threads = BLOCK_THREADS[name]
     return group, threads, -(-m * group // threads)
 

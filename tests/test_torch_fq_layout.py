@@ -6,10 +6,10 @@ the kernels is plain C++ when ``__CUDACC__`` is not defined.  A host harness
 includes the source as it is, compiled with ``g++``, and drives each
 kernel's per-thread body over the launch grid that the wrapper picks
 (``bigint_pallas._geometry``): the one-thread bodies thread by thread, and
-the multiply's group body as one emulated group of ``g`` lanes at a time,
-each lane a coroutine run in turns, so that a shuffle writes the lane's
-register into the group's slots and reads its partner's once every lane has
-written, as a warp's lanes do in step.  The harness is built once per module
+the group bodies (multiply, add, sub) as one emulated group of ``g`` lanes
+at a time, each lane a coroutine run in turns, so that a shuffle or a ballot
+writes the lane's register into the group's slots and reads once every lane
+has written, as a warp's lanes do in step.  The harness is built once per module
 into a temporary directory.
 """
 
@@ -86,6 +86,12 @@ void add_lane(int rank) {
                 group.bls, group.bes, group.out, group.m);
 }
 
+template <int G>
+void sub_lane(int rank) {
+  sub_thread<G>(HostLanes{rank}, group.first + rank, group.a, group.als, group.aes, group.b,
+                group.bls, group.bes, group.out, group.m);
+}
+
 // Every group of the grid in turn, its lanes as coroutines.
 template <int G>
 void run_grid(void (*lane)(int), const int32_t* a, int64_t als, int64_t aes, const int32_t* b,
@@ -138,10 +144,16 @@ extern "C" int host_add(int g, PLANES) {
 }
 
 extern "C" int host_sub(int g, PLANES) {
-  if (g != 1) return -1;
-  for (int64_t gid = 0; gid < threads * blocks; ++gid)
-    sub_thread(gid, a, als, aes, b, bls, bes, out, m);
-  return 0;
+  switch (g) {
+    case 1:
+      for (int64_t gid = 0; gid < threads * blocks; ++gid)
+        sub_thread<1>(OneLane{}, gid, a, als, aes, b, bls, bes, out, m);
+      return 0;
+    case 2: run_grid<2>(sub_lane<2>, PASS); return 0;
+    case 4: run_grid<4>(sub_lane<4>, PASS); return 0;
+    case 8: run_grid<8>(sub_lane<8>, PASS); return 0;
+  }
+  return -1;
 }
 
 // counts[i * m + e] += 1 for every limb store of a grid of `threads`
@@ -163,6 +175,7 @@ extern "C" int host_constant(const char* name) {
   const std::string n(name);
   if (n == "kMulGroup") return kMulGroup;
   if (n == "kAddGroup") return kAddGroup;
+  if (n == "kSubGroup") return kSubGroup;
   if (n == "kMaxThreads") return kMaxThreads;
   return -1;
 }
@@ -271,19 +284,67 @@ def test_host_mul_matches_python_ints(harness, g):
 
 
 @pytest.mark.parametrize(
-    "name,g", [("add_mod", 1), ("add_mod", 2), ("add_mod", 4), ("add_mod", 8), ("sub_mod", 1)],
-    ids=["add-g1", "add-g2", "add-g4", "add-g8", "sub"],
+    "name,g",
+    [("add_mod", 1), ("add_mod", 2), ("add_mod", 4), ("add_mod", 8), ("sub_mod", 1),
+     ("sub_mod", 2), ("sub_mod", 4), ("sub_mod", 8)],
+    ids=["add-g1", "add-g2", "add-g4", "add-g8", "sub", "sub-g2", "sub-g4", "sub-g8"],
 )
 def test_host_add_sub_match_python_ints(harness, name, g):
+    """The shared add/sub body at each group size: the add launches it with
+    2 threads per element, the sub with 1, 2 or 4; 8 runs the ballot
+    lookahead over eight ranks."""
     xs, ys = _operands(300, 200 + g)
     m = len(xs)
     got = _drive(harness, name, g, BP.to_planes(xs), BP.to_planes(ys), m, _with_group(name, g, m))
     assert BP.from_planes(got) == [HOST[name](x, y) for x, y in zip(xs, ys)]
 
 
+def _rank_edges() -> tuple[list[int], list[int]]:
+    """Sub operands whose borrows and carries cross the boundaries between
+    the ranks' limb blocks (limbs 8, 16 and 24): a == b; a = 0, b = p - 1;
+    a and b equal in their low limbs, so the borrow out of the difference
+    above ripples from there; differences whose low limbs are all zero;
+    and borrows that run through zero limbs (2^(12 j) - 1)."""
+    rng = random.Random(400)
+    xs, ys = [], []
+
+    def pair(x: int, y: int) -> None:
+        assert 0 <= x < P and 0 <= y < P
+        xs.append(x)
+        ys.append(y)
+
+    for v in (0, 1, P - 1, rng.randrange(P), (1 << 192) - 1, 1 << 192):
+        pair(v, v)
+    pair(0, P - 1)
+    pair(P - 1, 0)
+    for j in (8, 16, 24, 31):
+        low = rng.randrange(1 << (12 * j))
+        top = P >> (12 * j)
+        for hx, hy in ((0, 1), (1, 0), (top - 2, top - 1), (top - 1, top - 2)):
+            pair((hx << (12 * j)) | low, (hy << (12 * j)) | low)  # equal low limbs
+        base = rng.randrange(P >> 1)
+        step = 1 << (12 * j)
+        pair(base + step, base)  # a - b = 2^(12 j): low limbs all zero
+        pair(base, base + step)  # a - b = -2^(12 j): borrow out, + p
+        pair(step, 1)  # 2^(12 j) - 1: the borrow runs through j - 1 zero limbs
+        pair(1, step)
+        pair(step, step - 1)
+    return xs, ys
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_host_sub_across_rank_boundaries(harness, g):
+    xs, ys = _rank_edges()
+    m = len(xs)
+    got = _drive(harness, "sub_mod", g, BP.to_planes(xs), BP.to_planes(ys), m,
+                 _with_group("sub_mod", g, m))
+    assert BP.from_planes(got) == [(x - y) % P for x, y in zip(xs, ys)]
+
+
 @pytest.mark.parametrize(
     "name,g",
-    [("mul_mod", 1), ("mul_mod", BP.MUL_GROUP), ("add_mod", BP.ADD_GROUP), ("sub_mod", 1)],
+    [("mul_mod", 1), ("mul_mod", BP.MUL_GROUP), ("add_mod", BP.ADD_GROUP),
+     ("sub_mod", BP.SUB_GROUP)],
     ids=["mul-one-thread", "mul-group", "add", "sub"],
 )
 def test_host_broadcast_operand(harness, name, g):
@@ -324,7 +385,7 @@ def test_mul_geometry_covers_every_limb_once(harness, index):
 
 @pytest.mark.parametrize("name", ["add_mod", "sub_mod"])
 def test_add_sub_geometry_covers_every_limb_once(harness, name):
-    want = BP.ADD_GROUP if name == "add_mod" else 1
+    want = BP.ADD_GROUP if name == "add_mod" else BP.SUB_GROUP
     for m in (1, 63, 64, 65, 6144, 24576, (1 << 20) + 3):
         group, threads, blocks = BP._geometry(name, m)
         assert (group, threads) == (want, BP.BLOCK_THREADS[name])
@@ -338,4 +399,5 @@ def test_add_sub_geometry_covers_every_limb_once(harness, name):
 def test_host_constants_match_the_wrapper(harness):
     assert harness.host_constant(b"kMulGroup") == BP.MUL_GROUP
     assert harness.host_constant(b"kAddGroup") == BP.ADD_GROUP
+    assert harness.host_constant(b"kSubGroup") == BP.SUB_GROUP
     assert max(BP.BLOCK_THREADS.values()) <= harness.host_constant(b"kMaxThreads")
