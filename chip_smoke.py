@@ -17,6 +17,19 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    ``install_device_backend()``, cold and warm, each equal to the hashlib
    root, with the SHA-256 launch count read around each root and the node
    count of every launch of a third root recorded;
+3b. the state transition at that state (``build_state`` seeds the work of
+   an epoch boundary: participation, inactivity scores, slashings, an
+   activation queue, exits): real keys for the sync committee and for 8
+   committees (derived on the card); ``process_slots`` from two slots before
+   the boundary to two after it, with every root through the incremental
+   engine and the device backend and the boundary on the resident plane,
+   then the same walk on the host path (hashlib, host epoch), every slot's
+   root equal; a block for the next slot minted by ``duties`` with a live
+   sync aggregate and the 8 committees' aggregate attestations, imported
+   with ``validate_result=True`` (SHA-256 and field launches counted, then
+   profiled), and a copy with one attestation signature swapped rejected;
+   then the engine's full-field rebuild at 2^8 to 2^20 chunks through
+   hashlib and through the device backend;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -60,7 +73,8 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
 
 Every path of phases 3-8 is driven with the kernels' launch counts set to 0
 just before it and read just after; a path that launched a kernel of its
-own no time fails the run.  Needs one card, ``nvcc`` and ``cuobjdump``;
+own no time fails the run (the block import of phase 3b needs both the
+SHA-256 kernel and the three field kernels).  Needs one card, ``nvcc`` and ``cuobjdump``;
 exits nonzero without a card.  Longer records land in
 ``chiprun_out/chip_smoke.json``.
 """
@@ -71,6 +85,7 @@ import contextlib
 import hashlib
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -109,6 +124,13 @@ G1_LANES, G2_LANES, MUL_SAMPLE = 4096, 1024, 32
 PAIR_CHECKS, PAIRS_PER_CHECK = 4, 8
 # blob KZG: FIELD_ELEMENTS_PER_BLOB and MAX_BLOBS_PER_BLOCK (mainnet, Deneb)
 BLOB_WIDTH, N_BLOBS = 4096, 6
+# the state transition's block: full-committee aggregates of the previous
+# slot, 8 of the 64 committees (3,892 members at this 1,000,000-validator
+# state, under the JAX package's BLS_BLOCK_BATCH_MIN_MEMBERS of 4,096)
+ATT_COMMITTEES = 8
+# the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
+# (on an H100 the device backend is faster from about 2^10 chunks up)
+CROSSOVER_LOG2 = tuple(range(8, 21))
 
 # H100 SXM, from the data sheet and the Hopper white paper: HBM3 rate, SMs,
 # INT32 lanes per SM (the ALU pipe) and thread-instructions an SM can issue
@@ -189,7 +211,13 @@ def _op_ms(opcodes: Counter, n: int, clock_mhz: float) -> float:
 
 
 def build_state(spec, n: int, seed: int):
-    """A mainnet-preset BeaconState with ``n`` seeded validators."""
+    """A mainnet-preset BeaconState with ``n`` seeded validators, two slots
+    before an epoch boundary at which every pass has work: ~95 % of the
+    registry with previous-epoch flags, nonzero inactivity scores on a
+    fifth, slashed validators inside the slashings window (half of them
+    penalty targets at this boundary), an activation queue, new
+    eligibility marks, exits at the next epoch and balances on both sides
+    of the hysteresis thresholds.  Every pubkey is random bytes."""
     from lambda_ethereum_consensus_tpu_torch import ssz
     from lambda_ethereum_consensus_tpu_torch.config import constants
     from lambda_ethereum_consensus_tpu_torch.types import (
@@ -203,36 +231,65 @@ def build_state(spec, n: int, seed: int):
         raw = rng.integers(0, 256, (count, width), dtype=np.uint8).tobytes()
         return [raw[i * width:(i + 1) * width] for i in range(count)]
 
-    far = constants.FAR_FUTURE_EPOCH
+    far = np.uint64(constants.FAR_FUTURE_EPOCH)
+    slot = 9_000_000 + spec.SLOTS_PER_EPOCH - 2
+    epoch = slot // spec.SLOTS_PER_EPOCH
+    inc = spec.EFFECTIVE_BALANCE_INCREMENT
+
+    def epochs(values) -> np.ndarray:
+        return np.asarray(values, dtype=np.uint64)
+
     pubkeys = rows(n, 48)
     creds = rows(n, 32)
-    effective = (rng.integers(16, 33, n) * 10**9).tolist()
-    eligibility = rng.integers(0, 250_000, n)
-    activation = (eligibility + rng.integers(1, 5, n)).tolist()
-    exiting = rng.random(n) < 0.01
-    exit_epoch = np.where(exiting, eligibility + 300_000, 0).tolist()
-    slashed = (rng.random(n) < 0.001).tolist()
-    eligibility = eligibility.tolist()
+    incr = np.where(rng.random(n) < 0.9, 32, rng.integers(17, 32, n))
+    eligibility = epochs(rng.integers(0, 250_000, n))
+    activation = eligibility + epochs(rng.integers(1, 5, n))
+    exit_epoch = np.where(rng.random(n) < 0.01, eligibility + epochs(300_000), far)
+    withdrawable = np.where(exit_epoch == far, far, exit_epoch + epochs(256))
+    roll = rng.random(n)
+    # exits at the next epoch: active now, not in the next epoch's committees
+    leaving = roll < 0.0005
+    exit_epoch = np.where(leaving, epochs(epoch + 1), exit_epoch)
+    withdrawable = np.where(leaving, epochs(epoch + 257), withdrawable)
+    # the activation queue (eligible at the finalized epoch) and fresh
+    # deposits awaiting their eligibility mark
+    queued = (roll >= 0.0005) & (roll < 0.0025)
+    marked = (roll >= 0.0025) & (roll < 0.0026)
+    eligibility = np.where(queued, epochs(epoch - 10), np.where(marked, far, eligibility))
+    activation = np.where(queued | marked, far, activation)
+    incr = np.where(marked, 32, incr)
+    # slashed and exited, inside the slashings window; half are this
+    # boundary's penalty targets
+    slashed = (roll >= 0.0026) & (roll < 0.0036)
+    exit_epoch = np.where(slashed, epochs(epoch - 100), exit_epoch)
+    late = epochs((rng.random(n) < 0.5) * rng.integers(1, 100, n))
+    withdrawable = np.where(
+        slashed, epochs(epoch + spec.EPOCHS_PER_SLASHINGS_VECTOR // 2) + late, withdrawable)
+    eligibility, activation, exit_epoch, withdrawable = (
+        a.tolist() for a in (eligibility, activation, exit_epoch, withdrawable))
+    effective = (incr * inc).tolist()
     validators = [
         Validator(
             pubkey=pubkeys[i],
             withdrawal_credentials=creds[i],
             effective_balance=effective[i],
-            slashed=slashed[i],
+            slashed=bool(slashed[i]),
             activation_eligibility_epoch=eligibility[i],
             activation_epoch=activation[i],
-            exit_epoch=exit_epoch[i] or far,
-            withdrawable_epoch=exit_epoch[i] + 256 if exit_epoch[i] else far,
+            exit_epoch=exit_epoch[i],
+            withdrawable_epoch=withdrawable[i],
         )
         for i in range(n)
     ]
-    balances = (np.asarray(effective) + rng.integers(0, 10**8, n)).tolist()
+    # 1 % half an increment below their effective balance (hysteresis down)
+    balances = incr * inc + np.where(rng.random(n) < 0.01, -inc // 2, rng.integers(0, 10**8, n))
+    previous = np.where(rng.random(n) < 0.95, 7, rng.integers(0, 8, n))
+    current = np.where(rng.random(n) < 0.9, 7, rng.integers(0, 8, n))
+    scores = np.where(rng.random(n) < 0.2, rng.integers(1, 64, n), 0)
     sync = SyncCommittee(
         pubkeys=[pubkeys[i] for i in rng.integers(0, n, spec.SYNC_COMMITTEE_SIZE)],
         aggregate_pubkey=rows(1, 48)[0],
     )
-    slot = 9_000_000
-    epoch = slot // spec.SLOTS_PER_EPOCH
     return BeaconState(
         genesis_time=1606824023,
         genesis_validators_root=rows(1, 32)[0],
@@ -249,16 +306,16 @@ def build_state(spec, n: int, seed: int):
                          for r in rows(100, 32)],
         eth1_deposit_index=n,
         validators=validators,
-        balances=balances,
+        balances=balances.tolist(),
         randao_mixes=rows(spec.EPOCHS_PER_HISTORICAL_VECTOR, 32),
         slashings=rng.integers(0, 10**10, spec.EPOCHS_PER_SLASHINGS_VECTOR).tolist(),
-        previous_epoch_participation=rng.integers(0, 8, n).tolist(),
-        current_epoch_participation=rng.integers(0, 8, n).tolist(),
+        previous_epoch_participation=previous.tolist(),
+        current_epoch_participation=current.tolist(),
         justification_bits=ssz.BitvectorValue.from_bools([1, 1, 1, 0]),
         previous_justified_checkpoint=Checkpoint(epoch=epoch - 2, root=rows(1, 32)[0]),
         current_justified_checkpoint=Checkpoint(epoch=epoch - 1, root=rows(1, 32)[0]),
         finalized_checkpoint=Checkpoint(epoch=epoch - 2, root=rows(1, 32)[0]),
-        inactivity_scores=rng.integers(0, 50, n).tolist(),
+        inactivity_scores=scores.tolist(),
         current_sync_committee=sync,
         next_sync_committee=sync,
         latest_execution_payload_header=ExecutionPayloadHeader(
@@ -270,7 +327,7 @@ def build_state(spec, n: int, seed: int):
             transactions_root=rows(1, 32)[0], withdrawals_root=rows(1, 32)[0],
         ),
         next_withdrawal_index=42_000_000,
-        next_withdrawal_validator_index=123_456,
+        next_withdrawal_validator_index=123_456 % n,
         historical_summaries=[HistoricalSummary(block_summary_root=r, state_summary_root=r)
                               for r in rows(200, 32)],
     )
@@ -282,7 +339,7 @@ class _TimedBackend:
 
     def __init__(self, inner):
         self.inner = inner
-        self.tree_threshold = inner.tree_threshold
+        self.tree_threshold = getattr(inner, "tree_threshold", 1 << 62)
         self.seconds = 0.0
 
     def hash_level(self, blocks):
@@ -615,6 +672,339 @@ def _total(launches: dict) -> int:
 def _idle_line(name: str, wall: float, busy_ms: float) -> str:
     return (f"profiled {name}: {wall:.3f} s, device busy {busy_ms:.1f} ms, "
             f"idle share {1 - busy_ms / 1e3 / wall:.4f}")
+
+
+def _with_engine(state):
+    """A copy of ``state`` carrying a fresh root engine, which records the
+    seconds of each root in ``.seconds``, and no resident plane."""
+    from lambda_ethereum_consensus_tpu_torch.ssz.incremental import IncrementalStateRoot
+    from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+    from lambda_ethereum_consensus_tpu_torch.types import BeaconState
+
+    engine = IncrementalStateRoot(BeaconState)
+    engine.seconds = []
+    real = engine.root
+
+    def root(st, spec=None):
+        t = time.perf_counter()
+        try:
+            return real(st, spec)
+        finally:
+            engine.seconds.append(time.perf_counter() - t)
+
+    engine.root = root
+    ws = BeaconStateMut(state)
+    ws._root_engine = engine
+    ws._resident_plane = None
+    return ws.freeze()
+
+
+def _primed(state, spec):
+    """``_with_engine(state)`` after its engine has rooted it once: a node's
+    view of a parent state it has already rooted, so a block imported on it
+    roots only what the slot and the block change."""
+    out = _with_engine(state)
+    out._root_engine.root(out, spec)
+    out._root_engine.seconds.clear()
+    return out
+
+
+@contextlib.contextmanager
+def _timed_epochs():
+    """Seconds of each ``process_epoch`` the slot walk runs."""
+    from lambda_ethereum_consensus_tpu_torch.state_transition import core
+
+    seconds: list[float] = []
+    real = core.process_epoch
+
+    def timed(state, spec=None):
+        t = time.perf_counter()
+        try:
+            return real(state, spec)
+        finally:
+            seconds.append(time.perf_counter() - t)
+
+    core.process_epoch = timed
+    try:
+        yield seconds
+    finally:
+        core.process_epoch = real
+
+
+def _walk(start, slot: int, spec, backend, resident: bool, dev) -> dict:
+    """``process_slots`` from ``start`` to ``slot`` with ``backend`` installed
+    and the resident plane on or off; the seconds of every root, of every
+    epoch boundary, inside the backend's calls, and the SHA-256 launches."""
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.ssz import set_hash_backend
+    from lambda_ethereum_consensus_tpu_torch.state_transition import process_slots
+
+    saved = os.environ.get("GRAFT_RESIDENT_EPOCH")
+    os.environ["GRAFT_RESIDENT_EPOCH"] = "auto" if resident else "0"
+    timed = _TimedBackend(backend)
+    prev = set_hash_backend(timed)
+    state = _with_engine(start)
+    sops.sha256_kernel_launches = 0
+    _sync()
+    try:
+        with _timed_epochs() as epoch_s:
+            t0 = time.perf_counter()
+            end = process_slots(state, slot, spec, dev)
+            _sync()
+            wall = time.perf_counter() - t0
+        root_s = list(end._root_engine.seconds)
+        launches = sops.sha256_kernel_launches
+        final_root = end._root_engine.root(end, spec)
+    finally:
+        set_hash_backend(prev)
+        if saved is None:
+            os.environ.pop("GRAFT_RESIDENT_EPOCH")
+        else:
+            os.environ["GRAFT_RESIDENT_EPOCH"] = saved
+    return dict(end=end, wall_s=wall, root_s=root_s, epoch_s=epoch_s, backend_s=timed.seconds,
+                sha256_launches=launches, final_root=final_root)
+
+
+def _aggregate_attestation(state, data, committee, sks: dict, spec):
+    """The full committee's aggregate attestation, its signature minted as
+    H(m) * (sum of the members' keys): the bytes ``duties.make_attestation``
+    gives, without signing member by member on the host."""
+    from lambda_ethereum_consensus_tpu_torch.config import constants
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import DST_POP, hash_to_g2
+    from lambda_ethereum_consensus_tpu_torch.state_transition import accessors, misc
+    from lambda_ethereum_consensus_tpu_torch.types import Attestation
+
+    domain = accessors.get_domain(state, constants.DOMAIN_BEACON_ATTESTER, data.target.epoch, spec)
+    root = misc.compute_signing_root(data, domain)
+    k = sum(sks[v] for v in committee) % C.R
+    return Attestation(aggregation_bits=[True] * len(committee), data=data,
+                       signature=C.g2_to_bytes(C.g2.multiply_raw(hash_to_g2(root, DST_POP), k)))
+
+
+def _real_keys(dev, rng, indices: list) -> tuple[dict, dict]:
+    """Seeded secret keys for ``indices`` and their pubkey points, derived
+    on the card by ``batch_g1_mul``."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.ops.bls_g1 import batch_g1_mul
+
+    sks = {i: int.from_bytes(rng.bytes(32), "big") % (C.R - 1) + 1 for i in indices}
+    points = batch_g1_mul([C.G1_GENERATOR] * len(indices), [sks[i] for i in indices], device=dev)
+    return sks, dict(zip(indices, points))
+
+
+def transition_phase(dev, rng, record: dict, state, spec):
+    """Phase 3b: the state transition on the card, at the phase-3 state.
+
+    Real keys go to the current sync committee and the members of the
+    ATT_COMMITTEES committees whose attestations the block carries; the
+    slot walk crosses one epoch boundary on the resident plane with every
+    root through the incremental engine and the device backend, and again
+    on the host path (hashlib, host epoch) in the same process, every
+    slot's root equal; then a block for the next slot, with a live sync
+    aggregate and those attestations, is minted by ``duties`` on a lineage
+    of its own, imported with ``validate_result=True`` (counted, then
+    profiled) on the walk's end state under an engine that has rooted only
+    that state, its post-state rooted again through hashlib, and a copy with
+    one attestation signature swapped is rejected.  Returns the import as a
+    path for phase 9."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.ssz import HashlibBackend, set_hash_backend
+    from lambda_ethereum_consensus_tpu_torch.ssz import incremental as inc
+    from lambda_ethereum_consensus_tpu_torch.state_transition import (
+        StateTransitionError, accessors, process_slots, state_transition,
+    )
+    from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+    from lambda_ethereum_consensus_tpu_torch.types import SyncCommittee
+    from lambda_ethereum_consensus_tpu_torch.validator import duties
+
+    _reset_peak()
+    t_phase = time.perf_counter()
+    start_slot = int(state.slot)
+    walk_to = start_slot + 4  # the boundary sits between start_slot + 1 and + 2
+    block_slot = walk_to + 1
+    att_epoch = walk_to // spec.SLOTS_PER_EPOCH
+
+    # ---- real keys: the sync committee and the attesting committees
+    ws = BeaconStateMut(state)
+    committees = [accessors.get_beacon_committee(ws, walk_to, i, spec)
+                  for i in range(ATT_COMMITTEES)]
+    sync_members = [int(i) for i in rng.choice(ws.active_indices(att_epoch),
+                                               spec.SYNC_COMMITTEE_SIZE, replace=False)]
+    keyed = sorted(set(sync_members).union(*committees))
+    t0 = time.perf_counter()
+    sks, points = _real_keys(dev, rng, keyed)
+    pubkeys = {i: C.g1_to_bytes(points[i]) for i in keyed}
+    keys_s = time.perf_counter() - t0
+    for i in keyed:
+        ws.validators[i] = ws.validators[i].copy(pubkey=pubkeys[i])
+    ws.touch_registry()
+    agg = None
+    for i in sync_members:
+        agg = C.g1.affine_add(agg, points[i])
+    ws.current_sync_committee = SyncCommittee(
+        pubkeys=[pubkeys[i] for i in sync_members], aggregate_pubkey=C.g1_to_bytes(agg))
+    ws.next_sync_committee = ws.current_sync_committee
+    start = ws.freeze()
+    members = sum(len(c) for c in committees)
+    print(f"real keys for {len(keyed)} validators ({spec.SYNC_COMMITTEE_SIZE} sync members, "
+          f"{ATT_COMMITTEES} committees of {members // ATT_COMMITTEES} = {members} attesters) "
+          f"derived on the card in {keys_s:.2f} s")
+
+    # ---- the slot walk across the boundary: card, then host
+    walks = {
+        "card": _walk(start, walk_to, spec, sops.DeviceHashBackend(dev), True, dev),
+        "host": _walk(start, walk_to, spec, HashlibBackend(), False, dev),
+    }
+    card, host = walks["card"]["end"], walks["host"]["end"]
+    plane = card._resident_plane
+    if plane is None or plane.stats["sweeps"] != 1 or plane.stats["fallbacks"]:
+        raise AssertionError(f"the boundary missed the resident plane: {plane and plane.stats}")
+    if getattr(host, "_resident_plane", None) is not None:
+        raise AssertionError("the host walk attached a resident plane")
+    if not walks["card"]["sha256_launches"]:
+        raise AssertionError("the card walk launched no SHA-256 kernel")
+    for s in range(start_slot, walk_to):
+        i = s % spec.SLOTS_PER_HISTORICAL_ROOT
+        if bytes(card.state_roots[i]) != bytes(host.state_roots[i]) or \
+                bytes(card.block_roots[i]) != bytes(host.block_roots[i]):
+            raise AssertionError(f"slot {s}: the card's root differs from the host path's")
+    if walks["card"]["final_root"] != walks["host"]["final_root"]:
+        raise AssertionError("the walks end on different state roots")
+    ws = BeaconStateMut(card)
+    if [accessors.get_beacon_committee(ws, walk_to, i, spec)
+            for i in range(ATT_COMMITTEES)] != committees:
+        raise AssertionError("the attesting committees moved across the boundary")
+    for name, w in walks.items():
+        print(f"{name} walk {start_slot} -> {walk_to}: {w['wall_s']:.3f} s; per-slot roots "
+              + ", ".join(f"{x:.3f}" for x in w["root_s"])
+              + f" s; epoch boundary {w['epoch_s'][0]:.3f} s; {w['backend_s']:.3f} s inside "
+              f"backend calls, {w['wall_s'] - w['backend_s']:.3f} s host; "
+              f"{w['sha256_launches']} SHA-256 launches")
+    print(f"every slot's root, {start_slot} to {walk_to - 1}, and the final root "
+          f"{walks['card']['final_root'].hex()} equal on the card and on the host path")
+    print(f"resident plane: {plane.device_bytes / 2**20:.1f} MiB on the card, stats {plane.stats}")
+
+    # ---- the block for the next slot: mint, import, profile, tamper
+    device_backend = sops.install_device_backend(dev)
+    proposer = duties.proposer_index_at_slot(ws, block_slot, spec)
+    if proposer not in sks:
+        sk = int.from_bytes(rng.bytes(32), "big") % (C.R - 1) + 1
+        sks[proposer] = sk
+        ws.update_validator(proposer, pubkey=C.g1_to_bytes(C.g1.multiply_raw(C.G1_GENERATOR, sk)))
+        card = ws.freeze()
+    proposer_sk = sks[proposer].to_bytes(32, "big")
+    sync_keys = {pubkeys[i]: sks[i].to_bytes(32, "big") for i in sync_members}
+    pre = process_slots(_with_engine(card), block_slot, spec, dev)
+    pre_ws = BeaconStateMut(pre)
+    head = accessors.get_block_root_at_slot(pre_ws, walk_to, spec)
+    atts = [
+        _aggregate_attestation(
+            pre_ws, duties.attestation_data_from_state(pre_ws, walk_to, i, head, spec),
+            committees[i], sks, spec)
+        for i in range(ATT_COMMITTEES)
+    ]
+    t0 = time.perf_counter()
+    signed, post = duties.build_signed_block(pre, block_slot, {proposer: proposer_sk},
+                                             attestations=atts, spec=spec,
+                                             sync_secret_keys=sync_keys, device=dev)
+    mint_s = time.perf_counter() - t0
+
+    def import_block(block, parent):
+        return state_transition(parent, block, validate_result=True, spec=spec, device=dev)
+
+    parent = _primed(card, spec)
+    _zero_fq_launches()
+    sops.sha256_kernel_launches = 0
+    _sync()
+    t0 = time.perf_counter()
+    imported = import_block(signed, parent)
+    _sync()
+    import_s = time.perf_counter() - t0
+    fq = _launches()
+    sha = sops.sha256_kernel_launches
+    _require_all(fq, "block import")
+    if not sha:
+        raise AssertionError("the block import launched no SHA-256 kernel")
+    t0 = time.perf_counter()
+    hashlib_root = imported.hash_tree_root(spec, backend=HashlibBackend())
+    hashlib_s = time.perf_counter() - t0
+    if hashlib_root != bytes(signed.message.state_root):
+        raise AssertionError(f"the imported state's hashlib root {hashlib_root.hex()} != the "
+                             f"block's state root {bytes(signed.message.state_root).hex()}")
+    if bytes(imported.latest_block_header.body_root) != \
+            signed.message.body.hash_tree_root(spec, backend=HashlibBackend()):
+        raise AssertionError("the imported header does not carry the block's body")
+    parent = _primed(card, spec)
+    wall, busy = _profiled(lambda: import_block(signed, parent))
+
+    body = signed.message.body
+    swapped = list(body.attestations)
+    swapped[0] = swapped[0].copy(signature=bytes(swapped[1].signature))
+    bad = duties.sign_block(pre_ws, signed.message.copy(body=body.copy(attestations=swapped)),
+                            proposer_sk, spec)
+    parent = _primed(card, spec)
+    t0 = time.perf_counter()
+    try:
+        import_block(bad, parent)
+    except StateTransitionError as e:
+        if "invalid attestation signature" not in str(e):
+            raise
+        reject_s = time.perf_counter() - t0
+    else:
+        raise AssertionError("a block with a swapped attestation signature was imported")
+    peak = _peak_mib()
+    print(f"block {block_slot}: {len(atts)} attestations ({members} members) and a "
+          f"{spec.SYNC_COMMITTEE_SIZE}-member sync aggregate, minted in {mint_s:.3f} s")
+    print(f"block import with validate_result=True: {import_s:.3f} s; {sha} SHA-256 launches, "
+          f"{_total(fq)} field launches {fq}")
+    print(f"imported state's root == the block's state root through hashlib "
+          f"({hashlib_s:.3f} s on the host)")
+    print(_idle_line("block import", wall, busy) + f"; peak device memory {peak:.0f} MiB")
+    print(f"swapped attestation signature rejected in {reject_s:.3f} s")
+
+    # ---- the incremental engine's full-field rebuild: hashlib against the
+    # device backend, one size at a time
+    crossover = []
+    for k in CROSSOVER_LOG2:
+        chunks = rng.integers(0, 256, (1 << k, 32), dtype=np.uint8)
+        row = {"chunks": 1 << k}
+        for name, backend in (("hashlib", HashlibBackend()), ("device", device_backend)):
+            _sync()
+            t0 = time.perf_counter()
+            levels = inc._build_levels(chunks.copy(), backend)
+            _sync()
+            row[f"{name}_s"] = time.perf_counter() - t0
+            row[f"{name}_root"] = levels[-1][0].tobytes()
+        if row.pop("hashlib_root") != row.pop("device_root"):
+            raise AssertionError(f"rebuild roots differ at {1 << k} chunks")
+        crossover.append(row)
+    print("full-field rebuild, hashlib vs device backend: " + "; ".join(
+        f"2^{k} chunks {r['hashlib_s'] * 1e3:.2f} vs {r['device_s'] * 1e3:.2f} ms"
+        for k, r in zip(CROSSOVER_LOG2, crossover)))
+    set_hash_backend(HashlibBackend())
+
+    record["state_transition"] = dict(
+        validators=len(state.validators), slots=[start_slot, walk_to], block_slot=block_slot,
+        keyed_validators=len(keyed), attesters=members, keys_s=keys_s,
+        walks={name: {k: v for k, v in w.items() if k not in ("end", "final_root")}
+               for name, w in walks.items()},
+        plane_stats=dict(plane.stats), plane_device_bytes=plane.device_bytes,
+        mint_s=mint_s, import_s=import_s, import_sha256_launches=sha, import_fq_launches=fq,
+        import_hashlib_root_s=hashlib_s,
+        profiled_import_s=wall, import_device_busy_ms=busy, reject_s=reject_s, peak_mib=peak,
+        rebuild_crossover=crossover, seconds=time.perf_counter() - t_phase,
+    )
+
+    def import_path():
+        prev = set_hash_backend(device_backend)
+        try:
+            return import_block(signed, _primed(card, spec))
+        finally:
+            set_hash_backend(prev)
+
+    return import_path
 
 
 def sign_phase(dev, rng, record: dict) -> dict:
@@ -1213,10 +1603,16 @@ def main() -> int:
     print(f"timed root {timed_s:.3f} s: {timed.seconds:.3f} s inside device backend calls, "
           f"{timed_s - timed.seconds:.3f} s host work")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    del state, backend, timed
+    del backend, timed
+
+    # ---- phase 3b: the state transition on the card, at the same state
+    record: dict = {"card": card}
+    t0 = time.perf_counter()
+    block_import = transition_phase(dev, rng, record, state, spec)
+    print(f"state-transition phase {time.perf_counter() - t0:.1f} s")
+    del state
 
     # ---- phase 4: the signature leg — the attestation drain on the card
-    record: dict = {"card": card}
     t0 = time.perf_counter()
     fq_launches, drain = bls_phase(dev, rng, record)
     print(f"BLS phase {time.perf_counter() - t0:.1f} s")
@@ -1244,6 +1640,7 @@ def main() -> int:
         "drain": drain,
         "sign flush": lambda: G2.g2_ladder(duty["points"], duty["scalars"], 256, dev),
         "KZG MSM": lambda: K.blob_to_commitment(blob, setup, device=dev),
+        "block import": block_import,
     }
     path_err, record["path_shapes"] = path_shape_timings(dev, rng, paths)
     mul_err, record["mul_body_sweep"] = body_sweep(

@@ -1,8 +1,9 @@
 """Carry state across from the JAX package.
 
 For this system the chain state plays the part that weights play for a
-model: the port takes the JAX package's state as its canonical SSZ encoding
-(``BeaconState.encode(spec)`` there) and decodes it into its own containers.
+model: the port takes the JAX package's state, and the blocks it minted, as
+their canonical SSZ encodings (``.encode(spec)`` there) and decodes them
+into its own containers.
 Device-side BLS state — registry pubkey planes, committee sums, Fq12 Miller
 outputs — crosses as numpy limb planes, ``(32, ...)`` int32 with 12-bit
 canonical limbs, the layout both packages share.  No object of the JAX
@@ -19,7 +20,13 @@ from .config import ChainSpec
 from .ssz import Container
 from .types import deneb
 
-__all__ = ["container_from_ssz", "planes_from_torch", "planes_to_torch", "state_from_ssz"]
+__all__ = [
+    "block_from_ssz",
+    "container_from_ssz",
+    "planes_from_torch",
+    "planes_to_torch",
+    "state_from_ssz",
+]
 
 
 def container_from_ssz(name: str, data: bytes, spec: ChainSpec | None = None) -> Container:
@@ -33,6 +40,11 @@ def container_from_ssz(name: str, data: bytes, spec: ChainSpec | None = None) ->
 def state_from_ssz(data: bytes, spec: ChainSpec | None = None) -> types.BeaconState:
     """The port's ``BeaconState`` from its SSZ bytes."""
     return types.BeaconState.decode(data, spec)
+
+
+def block_from_ssz(data: bytes, spec: ChainSpec | None = None) -> types.SignedBeaconBlock:
+    """The port's ``SignedBeaconBlock`` from its SSZ bytes."""
+    return types.SignedBeaconBlock.decode(data, spec)
 
 
 def planes_to_torch(planes, device: str | torch.device | None = None) -> torch.Tensor:

@@ -13,7 +13,7 @@ error cannot survive module import.
 
 The port's own copy of the JAX package's ``crypto/bls/curve.py``: the
 pure-Python path only, without the native scalar-multiplication and batch
-decompression hooks.
+decompression hooks (the batch decoders below take the per-point path).
 """
 
 from __future__ import annotations
@@ -331,3 +331,26 @@ def g2_from_bytes(data: bytes, subgroup_check: bool = True) -> AffinePoint:
     if subgroup_check and g2.multiply_raw(pt, R) is not None:
         raise DeserializationError("point not in G2 subgroup")
     return pt
+
+
+def _from_bytes_batch(decode, blobs, subgroup_check: bool) -> list:
+    res = []
+    for b in blobs:
+        try:
+            res.append(decode(bytes(b), subgroup_check))
+        except DeserializationError:
+            res.append(False)
+    return res
+
+
+def g1_from_bytes_batch(blobs, subgroup_check: bool = True) -> list:
+    """Batch :func:`g1_from_bytes`, point by point.  Per item: affine point
+    | ``None`` (canonical infinity) | ``False`` (invalid encoding, point or
+    subgroup) — batch callers need per-item verdicts, not a first-failure
+    exception."""
+    return _from_bytes_batch(g1_from_bytes, blobs, subgroup_check)
+
+
+def g2_from_bytes_batch(blobs, subgroup_check: bool = True) -> list:
+    """Batch :func:`g2_from_bytes`; same conventions as the G1 batch."""
+    return _from_bytes_batch(g2_from_bytes, blobs, subgroup_check)

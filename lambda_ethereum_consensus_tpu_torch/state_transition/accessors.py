@@ -1,0 +1,338 @@
+"""Spec ``get_*`` accessors (ref: lib/.../state_transition/accessors.ex:14-512).
+
+Registry-wide queries (active sets, total balances, participation scans) are
+vectorized over the columnar registry views of :class:`~.mutable.
+BeaconStateMut`; plain containers fall back to list scans.
+"""
+
+from __future__ import annotations
+
+from ..config import ChainSpec, constants, get_chain_spec
+from ..types.beacon import IndexedAttestation, SyncCommittee
+from . import misc
+from .math import integer_squareroot
+from .misc import hash_bytes
+from .predicates import is_active_validator
+
+
+# --------------------------------------------------------------- epochs
+
+def get_current_epoch(state, spec: ChainSpec | None = None) -> int:
+    return misc.compute_epoch_at_slot(state.slot, spec)
+
+
+def get_previous_epoch(state, spec: ChainSpec | None = None) -> int:
+    current = get_current_epoch(state, spec)
+    return constants.GENESIS_EPOCH if current == constants.GENESIS_EPOCH else current - 1
+
+
+def get_randao_mix(state, epoch: int, spec: ChainSpec | None = None) -> bytes:
+    spec = spec or get_chain_spec()
+    return bytes(state.randao_mixes[epoch % spec.EPOCHS_PER_HISTORICAL_VECTOR])
+
+
+def get_block_root_at_slot(state, slot: int, spec: ChainSpec | None = None) -> bytes:
+    spec = spec or get_chain_spec()
+    if not slot < state.slot <= slot + spec.SLOTS_PER_HISTORICAL_ROOT:
+        raise ValueError(f"slot {slot} out of block-root range at state slot {state.slot}")
+    return bytes(state.block_roots[slot % spec.SLOTS_PER_HISTORICAL_ROOT])
+
+
+def get_block_root(state, epoch: int, spec: ChainSpec | None = None) -> bytes:
+    return get_block_root_at_slot(state, misc.compute_start_slot_at_epoch(epoch, spec), spec)
+
+
+# ------------------------------------------------------------- registry
+
+def get_active_validator_indices(state, epoch: int) -> list[int]:
+    if hasattr(state, "active_indices"):  # BeaconStateMut vectorized path
+        return [int(i) for i in state.active_indices(epoch)]
+    return [
+        i for i, v in enumerate(state.validators) if is_active_validator(v, epoch)
+    ]
+
+
+def get_validator_churn_limit(state, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    active = len(get_active_validator_indices(state, get_current_epoch(state, spec)))
+    return max(spec.MIN_PER_EPOCH_CHURN_LIMIT, active // spec.CHURN_LIMIT_QUOTIENT)
+
+
+def get_total_balance(state, indices, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    total = sum(state.validators[i].effective_balance for i in set(indices))
+    return max(spec.EFFECTIVE_BALANCE_INCREMENT, total)
+
+
+def get_total_active_balance(state, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    epoch = get_current_epoch(state, spec)
+    if hasattr(state, "registry"):  # vectorized O(n) reduction
+        reg = state.registry()
+        mask = (reg["activation_epoch"] <= epoch) & (epoch < reg["exit_epoch"])
+        total = int(reg["effective_balance"][mask].sum())
+        return max(spec.EFFECTIVE_BALANCE_INCREMENT, total)
+    return get_total_balance(state, get_active_validator_indices(state, epoch), spec)
+
+
+# ------------------------------------------------------------ seeds / RNG
+
+def get_seed(state, epoch: int, domain_type: bytes, spec: ChainSpec | None = None) -> bytes:
+    spec = spec or get_chain_spec()
+    mix = get_randao_mix(
+        state,
+        epoch + spec.EPOCHS_PER_HISTORICAL_VECTOR - spec.MIN_SEED_LOOKAHEAD - 1,
+        spec,
+    )
+    return hash_bytes(domain_type + epoch.to_bytes(8, "little") + mix)
+
+
+# ------------------------------------------------------------ committees
+
+def get_committee_count_per_slot(state, epoch: int, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    active = len(get_active_validator_indices(state, epoch))
+    return max(
+        1,
+        min(
+            spec.MAX_COMMITTEES_PER_SLOT,
+            active // spec.SLOTS_PER_EPOCH // spec.TARGET_COMMITTEE_SIZE,
+        ),
+    )
+
+
+def get_beacon_committee(
+    state, slot: int, index: int, spec: ChainSpec | None = None
+) -> list[int]:
+    spec = spec or get_chain_spec()
+    epoch = misc.compute_epoch_at_slot(slot, spec)
+    committees_per_slot = get_committee_count_per_slot(state, epoch, spec)
+    return misc.compute_committee(
+        get_active_validator_indices(state, epoch),
+        get_seed(state, epoch, constants.DOMAIN_BEACON_ATTESTER, spec),
+        (slot % spec.SLOTS_PER_EPOCH) * committees_per_slot + index,
+        committees_per_slot * spec.SLOTS_PER_EPOCH,
+        spec,
+    )
+
+
+def get_beacon_proposer_index(
+    state, spec: ChainSpec | None = None, slot: int | None = None
+) -> int:
+    """Proposer at ``state.slot`` (the spec accessor), or at an explicit
+    ``slot`` — the proposer seed mixes the epoch seed with the slot
+    bytes, so one state answers a whole epoch's schedule (the duty
+    scheduler's ``proposer_index_at_slot`` delegates here)."""
+    spec = spec or get_chain_spec()
+    if slot is None:
+        slot = int(state.slot)
+    epoch = misc.compute_epoch_at_slot(int(slot), spec)
+    seed = hash_bytes(
+        get_seed(state, epoch, constants.DOMAIN_BEACON_PROPOSER, spec)
+        + int(slot).to_bytes(8, "little")
+    )
+    indices = get_active_validator_indices(state, epoch)
+    if hasattr(state, "registry"):
+        ebs = state.registry()["effective_balance"]
+    else:
+        ebs = [v.effective_balance for v in state.validators]
+    return misc.compute_proposer_index(ebs, indices, seed, spec)
+
+
+# --------------------------------------------------------------- domains
+
+def get_domain(
+    state, domain_type: bytes, epoch: int | None = None, spec: ChainSpec | None = None
+) -> bytes:
+    spec = spec or get_chain_spec()
+    if epoch is None:
+        epoch = get_current_epoch(state, spec)
+    fork_version = (
+        state.fork.previous_version
+        if epoch < state.fork.epoch
+        else state.fork.current_version
+    )
+    return misc.compute_domain(
+        domain_type, bytes(fork_version), bytes(state.genesis_validators_root), spec
+    )
+
+
+# ----------------------------------------------------------- attestations
+
+def get_attesting_indices(
+    state, data, aggregation_bits, spec: ChainSpec | None = None
+) -> set[int]:
+    from .errors import OperationError
+
+    committee = get_beacon_committee(state, data.slot, data.index, spec)
+    if len(aggregation_bits) != len(committee):
+        raise OperationError("aggregation bits do not match committee size")
+    return {idx for i, idx in enumerate(committee) if aggregation_bits[i]}
+
+
+def get_indexed_attestation(state, attestation, spec: ChainSpec | None = None):
+    indices = get_attesting_indices(
+        state, attestation.data, attestation.aggregation_bits, spec
+    )
+    return IndexedAttestation(
+        attesting_indices=sorted(indices),
+        data=attestation.data,
+        signature=attestation.signature,
+    )
+
+
+# ------------------------------------------------------ participation (altair)
+
+def get_unslashed_participating_indices(
+    state, flag_index: int, epoch: int, spec: ChainSpec | None = None
+) -> set[int]:
+    spec = spec or get_chain_spec()
+    assert epoch in (get_previous_epoch(state, spec), get_current_epoch(state, spec))
+    which = (
+        "current" if epoch == get_current_epoch(state, spec) else "previous"
+    )
+    participation = getattr(state, f"{which}_epoch_participation")
+    flag = 1 << flag_index
+    active = get_active_validator_indices(state, epoch)
+    return {
+        i
+        for i in active
+        if (participation[i] & flag) and not state.validators[i].slashed
+    }
+
+
+def get_attestation_participation_flag_indices(
+    state, data, inclusion_delay: int, spec: ChainSpec | None = None
+) -> list[int]:
+    """Which timely flags an attestation earns (altair accounting)."""
+    spec = spec or get_chain_spec()
+    if data.target.epoch == get_current_epoch(state, spec):
+        justified_checkpoint = state.current_justified_checkpoint
+    else:
+        justified_checkpoint = state.previous_justified_checkpoint
+
+    is_matching_source = data.source == justified_checkpoint
+    if not is_matching_source:
+        raise ValueError("attestation source does not match justified checkpoint")
+    is_matching_target = is_matching_source and bytes(data.target.root) == (
+        get_block_root(state, data.target.epoch, spec)
+    )
+    is_matching_head = is_matching_target and bytes(data.beacon_block_root) == (
+        get_block_root_at_slot(state, data.slot, spec)
+    )
+
+    flags = []
+    if is_matching_source and inclusion_delay <= integer_squareroot(spec.SLOTS_PER_EPOCH):
+        flags.append(constants.TIMELY_SOURCE_FLAG_INDEX)
+    if is_matching_target and inclusion_delay <= spec.SLOTS_PER_EPOCH:
+        flags.append(constants.TIMELY_TARGET_FLAG_INDEX)
+    if is_matching_head and inclusion_delay == spec.MIN_ATTESTATION_INCLUSION_DELAY:
+        flags.append(constants.TIMELY_HEAD_FLAG_INDEX)
+    return flags
+
+
+# ------------------------------------------------------------ base rewards
+
+def get_base_reward_per_increment(state, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    return (
+        spec.EFFECTIVE_BALANCE_INCREMENT
+        * spec.BASE_REWARD_FACTOR
+        // integer_squareroot(get_total_active_balance(state, spec))
+    )
+
+
+def get_base_reward(state, index: int, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    increments = (
+        state.validators[index].effective_balance // spec.EFFECTIVE_BALANCE_INCREMENT
+    )
+    return increments * get_base_reward_per_increment(state, spec)
+
+
+def get_finality_delay(state, spec: ChainSpec | None = None) -> int:
+    return get_previous_epoch(state, spec) - state.finalized_checkpoint.epoch
+
+
+def is_in_inactivity_leak(state, spec: ChainSpec | None = None) -> bool:
+    spec = spec or get_chain_spec()
+    return get_finality_delay(state, spec) > spec.MIN_EPOCHS_TO_INACTIVITY_PENALTY
+
+
+# --------------------------------------------------------- sync committee
+
+def get_next_sync_committee_indices(state, spec: ChainSpec | None = None) -> list[int]:
+    """Balance-weighted sampling of the next sync committee (altair spec)."""
+    spec = spec or get_chain_spec()
+    epoch = get_current_epoch(state, spec) + 1
+    indices = get_active_validator_indices(state, epoch)
+    seed = get_seed(state, epoch, constants.DOMAIN_SYNC_COMMITTEE, spec)
+    total = len(indices)
+    perm = misc.compute_shuffled_indices(total, seed, spec.SHUFFLE_ROUND_COUNT)
+    max_eb = spec.MAX_EFFECTIVE_BALANCE
+    out: list[int] = []
+    i = 0
+    while len(out) < spec.SYNC_COMMITTEE_SIZE:
+        candidate = indices[perm[i % total]]
+        random_byte = hash_bytes(seed + (i // 32).to_bytes(8, "little"))[i % 32]
+        if state.validators[candidate].effective_balance * 255 >= max_eb * random_byte:
+            out.append(int(candidate))
+        i += 1
+    return out
+
+
+def get_next_sync_committee(state, spec: ChainSpec | None = None) -> SyncCommittee:
+    from ..crypto import bls
+
+    spec = spec or get_chain_spec()
+    indices = get_next_sync_committee_indices(state, spec)
+    pubkeys = [bytes(state.validators[i].pubkey) for i in indices]
+    return SyncCommittee(
+        pubkeys=pubkeys,
+        aggregate_pubkey=bls.eth_aggregate_pubkeys(pubkeys),
+    )
+
+
+# ------------------------------------------------------------- withdrawals
+
+def get_expected_withdrawals(state, spec: ChainSpec | None = None) -> list:
+    from ..types.beacon import Withdrawal
+    from .predicates import (
+        is_fully_withdrawable_validator,
+        is_partially_withdrawable_validator,
+    )
+
+    spec = spec or get_chain_spec()
+    epoch = get_current_epoch(state, spec)
+    withdrawal_index = state.next_withdrawal_index
+    validator_index = state.next_withdrawal_validator_index
+    withdrawals: list = []
+    n = len(state.validators)
+    for _ in range(min(n, spec.MAX_VALIDATORS_PER_WITHDRAWALS_SWEEP)):
+        validator = state.validators[validator_index]
+        balance = state.balances[validator_index]
+        address = bytes(validator.withdrawal_credentials)[12:]
+        if is_fully_withdrawable_validator(validator, balance, epoch):
+            withdrawals.append(
+                Withdrawal(
+                    index=withdrawal_index,
+                    validator_index=validator_index,
+                    address=address,
+                    amount=balance,
+                )
+            )
+            withdrawal_index += 1
+        elif is_partially_withdrawable_validator(validator, balance, spec):
+            withdrawals.append(
+                Withdrawal(
+                    index=withdrawal_index,
+                    validator_index=validator_index,
+                    address=address,
+                    amount=balance - spec.MAX_EFFECTIVE_BALANCE,
+                )
+            )
+            withdrawal_index += 1
+        if len(withdrawals) == spec.MAX_WITHDRAWALS_PER_PAYLOAD:
+            break
+        validator_index = (validator_index + 1) % n
+    return withdrawals

@@ -1,0 +1,148 @@
+"""Top-level state transition (ref: lib/.../state_transition/state_transition.ex).
+
+``state_transition`` = ``process_slots`` (per-slot root caching + epoch
+processing at boundaries) then block validation + ``process_block`` — with the
+signature and state-root checks the reference scaffolds but forces off
+(ref: state_transition.ex:20 ``validate_result = false``) fully enabled here.
+
+The port's copy of the JAX package's ``state_transition/core.py``.  The one
+argument the JAX package lacks is ``device``: ``None`` means the card, and
+the entry points below raise where it is absent; ``"cpu"`` runs the plain
+PyTorch versions.  It picks where the resident epoch plane keeps its columns
+(:func:`.resident.ensure_plane`) and where a block's attestation signatures
+are checked (:func:`.operations.process_operations`).
+"""
+
+from __future__ import annotations
+
+from ..config import ChainSpec, constants, get_chain_spec
+from ..crypto import bls
+from ..ops.sha256 import resolve_device
+from ..types.beacon import BeaconState, SignedBeaconBlock
+from . import accessors, misc, operations
+from .epoch import process_epoch
+from .errors import OperationError, StateTransitionError
+from .mutable import BeaconStateMut
+
+
+def state_root(state, spec: ChainSpec | None = None) -> bytes:
+    """``hash_tree_root`` through the state's incremental engine when one
+    rides the lineage (ssz/incremental) — exact, just not O(state).  The
+    per-block state-root check is as hot as the per-slot root."""
+    spec = spec or get_chain_spec()
+    eng = getattr(state, "_root_engine", None)
+    if eng is not None:
+        return eng.root(state, spec)
+    return state.hash_tree_root(spec)
+
+
+def process_slot(state: BeaconStateMut, spec: ChainSpec | None = None) -> None:
+    """Cache the previous state/block root into the history vectors."""
+    spec = spec or get_chain_spec()
+    if state._root_engine is None:
+        from ..ssz.incremental import IncrementalStateRoot
+
+        state._root_engine = IncrementalStateRoot(BeaconState)
+    # the engine rehashes only what moved since the last slot
+    previous_state_root = state._root_engine.root(state, spec)
+    state.state_roots[state.slot % spec.SLOTS_PER_HISTORICAL_ROOT] = previous_state_root
+    if bytes(state.latest_block_header.state_root) == b"\x00" * 32:
+        state.latest_block_header = state.latest_block_header.copy(
+            state_root=previous_state_root
+        )
+    previous_block_root = state.latest_block_header.hash_tree_root(spec)
+    state.block_roots[state.slot % spec.SLOTS_PER_HISTORICAL_ROOT] = previous_block_root
+
+
+def _process_slots_mut(state: BeaconStateMut, slot: int, spec: ChainSpec, device) -> None:
+    if state.slot >= slot:
+        raise StateTransitionError(
+            f"cannot advance state at slot {state.slot} to earlier slot {slot}"
+        )
+    while state.slot < slot:
+        process_slot(state, spec)
+        if (state.slot + 1) % spec.SLOTS_PER_EPOCH == 0:
+            # attach the resident plane at the first boundary this
+            # lineage crosses (size-gated; rides freeze/thaw from then on)
+            from .resident import ensure_plane
+
+            ensure_plane(state, spec, device)
+            process_epoch(state, spec)
+        state.slot += 1
+
+
+def process_slots(
+    state: BeaconState, slot: int, spec: ChainSpec | None = None, device=None
+) -> BeaconState:
+    """Advance ``state`` to ``slot`` (epoch processing at boundaries on
+    ``device``; default: the card)."""
+    spec = spec or get_chain_spec()
+    dev = resolve_device(device)
+    ws = BeaconStateMut(state)
+    _process_slots_mut(ws, slot, spec, dev)
+    return ws.freeze()
+
+
+def verify_block_signature(
+    state: BeaconStateMut, signed_block: SignedBeaconBlock, spec: ChainSpec
+) -> bool:
+    block = signed_block.message
+    if block.proposer_index >= len(state.validators):
+        return False  # attacker-controlled index: reject, don't crash
+    proposer = state.validators[block.proposer_index]
+    domain = accessors.get_domain(state, constants.DOMAIN_BEACON_PROPOSER, spec=spec)
+    signing_root = misc.compute_signing_root(block, domain)
+    return bls.verify(bytes(proposer.pubkey), signing_root, bytes(signed_block.signature))
+
+
+def process_block(
+    state: BeaconStateMut,
+    block,
+    execution_engine=None,
+    spec: ChainSpec | None = None,
+    device=None,
+) -> None:
+    """Full capella block processing (the reference wires only withdrawals +
+    sync aggregate — ref: state_transition.ex:117-126); the attestation
+    signatures are checked on ``device`` (default: the card)."""
+    spec = spec or get_chain_spec()
+    dev = resolve_device(device)
+    operations.process_block_header(state, block, spec)
+    operations.process_withdrawals(state, block.body.execution_payload, spec)
+    operations.process_execution_payload(state, block.body, execution_engine, spec)
+    operations.process_randao(state, block.body, spec)
+    operations.process_eth1_data(state, block.body, spec)
+    operations.process_operations(state, block.body, execution_engine, spec, dev)
+    operations.process_sync_aggregate(state, block.body.sync_aggregate, spec)
+
+
+def state_transition(
+    state: BeaconState,
+    signed_block: SignedBeaconBlock,
+    validate_result: bool = True,
+    execution_engine=None,
+    spec: ChainSpec | None = None,
+    device=None,
+) -> BeaconState:
+    """Apply a signed block: slots, signature, block, state-root check, with
+    the device work on ``device`` (default: the card)."""
+    spec = spec or get_chain_spec()
+    dev = resolve_device(device)
+    block = signed_block.message
+    ws = BeaconStateMut(state)
+    _process_slots_mut(ws, block.slot, spec, dev)
+    if validate_result and not verify_block_signature(ws, signed_block, spec):
+        raise StateTransitionError("invalid block signature")
+    try:
+        process_block(ws, block, execution_engine, spec, dev)
+    except OperationError as e:
+        raise StateTransitionError(str(e)) from None
+    out = ws.freeze()
+    if validate_result:
+        expect_root = state_root(out, spec)
+        if bytes(block.state_root) != expect_root:
+            raise StateTransitionError(
+                f"state root mismatch: block {bytes(block.state_root).hex()} "
+                f"!= computed {expect_root.hex()}"
+            )
+    return out

@@ -1,0 +1,210 @@
+"""Spec ``compute_*`` helpers (ref: lib/.../state_transition/misc.ex:14-270).
+
+The swap-or-not shuffle is implemented whole-permutation and vectorized:
+instead of the reference's per-index 90-round walk (misc.ex:33-77), one numpy
+pass shuffles *every* index per round — the batched shape that a device
+backend can take over wholesale.  A per-``(seed, count)`` LRU keeps the
+permutation for the many committee lookups within an epoch.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import numpy as np
+
+from ..config import ChainSpec, constants, get_chain_spec
+from ..ssz import hash as ssz_hash
+from ..types.beacon import ForkData, SigningData
+
+hash_bytes = ssz_hash.sha256
+
+
+# ------------------------------------------------------------ epoch math
+
+def compute_epoch_at_slot(slot: int, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    return slot // spec.SLOTS_PER_EPOCH
+
+
+def compute_start_slot_at_epoch(epoch: int, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    return epoch * spec.SLOTS_PER_EPOCH
+
+
+def compute_activation_exit_epoch(epoch: int, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    return epoch + 1 + spec.MAX_SEED_LOOKAHEAD
+
+
+def compute_timestamp_at_slot(state, slot: int, spec: ChainSpec | None = None) -> int:
+    spec = spec or get_chain_spec()
+    return state.genesis_time + (slot - constants.GENESIS_SLOT) * spec.SECONDS_PER_SLOT
+
+
+# ------------------------------------------------------- shuffle (vectorized)
+
+def _round_pivot(seed: bytes, rnd: int, index_count: int) -> int:
+    digest = hash_bytes(seed + bytes([rnd]))
+    return int.from_bytes(digest[:8], "little") % index_count
+
+
+def _round_source_bits(seed: bytes, rnd: int, index_count: int) -> np.ndarray:
+    """Bit i of the round's source stream, for i in [0, index_count)."""
+    nblocks = index_count // 256 + 1
+    digests = b"".join(
+        hash_bytes(seed + bytes([rnd]) + block.to_bytes(4, "little"))
+        for block in range(nblocks)
+    )
+    bits = np.unpackbits(np.frombuffer(digests, np.uint8), bitorder="little")
+    return bits[:index_count]
+
+
+@functools.lru_cache(maxsize=16)
+def compute_shuffled_indices(
+    index_count: int, seed: bytes, round_count: int
+) -> np.ndarray:
+    """``compute_shuffled_index`` applied to every index at once:
+    ``out[i] == compute_shuffled_index(i, index_count, seed)``.
+
+    Returns a cached read-only int64 array (8 bytes/entry — a tuple of boxed
+    ints would pin ~30x that per mainnet-sized registry in the LRU).
+    """
+    if index_count == 0:
+        return np.empty(0, dtype=np.int64)
+    indices = np.arange(index_count, dtype=np.int64)
+    for rnd in range(round_count):
+        pivot = _round_pivot(seed, rnd, index_count)
+        flip = (pivot - indices) % index_count
+        positions = np.maximum(indices, flip)
+        bits = _round_source_bits(seed, rnd, index_count)
+        indices = np.where(bits[positions] == 1, flip, indices)
+    indices.setflags(write=False)
+    return indices
+
+
+def compute_shuffled_index(
+    index: int, index_count: int, seed: bytes, spec: ChainSpec | None = None
+) -> int:
+    """Single-index swap-or-not walk (spec-literal; used by tests as oracle)."""
+    spec = spec or get_chain_spec()
+    assert index < index_count
+    for rnd in range(spec.SHUFFLE_ROUND_COUNT):
+        pivot = _round_pivot(seed, rnd, index_count)
+        flip = (pivot + index_count - index) % index_count
+        position = max(index, flip)
+        source = hash_bytes(
+            seed + bytes([rnd]) + (position // 256).to_bytes(4, "little")
+        )
+        byte = source[(position % 256) // 8]
+        if (byte >> (position % 8)) & 1:
+            index = flip
+    return index
+
+
+def _shuffled_permutation(index_count: int, seed: bytes, spec: ChainSpec) -> tuple:
+    return compute_shuffled_indices(index_count, seed, spec.SHUFFLE_ROUND_COUNT)
+
+
+def compute_committee(
+    indices: Sequence[int],
+    seed: bytes,
+    index: int,
+    count: int,
+    spec: ChainSpec | None = None,
+) -> list[int]:
+    """Committee ``index`` of ``count`` from the shuffled active set."""
+    spec = spec or get_chain_spec()
+    total = len(indices)
+    start = total * index // count
+    end = total * (index + 1) // count
+    perm = _shuffled_permutation(total, seed, spec)
+    return [int(indices[perm[i]]) for i in range(start, end)]
+
+
+def compute_subnet_for_attestation(
+    committees_per_slot: int,
+    slot: int,
+    committee_index: int,
+    spec: ChainSpec | None = None,
+) -> int:
+    """Gossip subnet carrying an unaggregated attestation (p2p spec
+    ``compute_subnet_for_attestation``; ref: the reference scaffolds the
+    64-subnet topic set at gossipsub.ex:16-34)."""
+    spec = spec or get_chain_spec()
+    committees_since_epoch_start = committees_per_slot * (slot % spec.SLOTS_PER_EPOCH)
+    return (
+        committees_since_epoch_start + committee_index
+    ) % constants.ATTESTATION_SUBNET_COUNT
+
+
+def compute_proposer_index(
+    effective_balances: Sequence[int],
+    indices: Sequence[int],
+    seed: bytes,
+    spec: ChainSpec | None = None,
+) -> int:
+    """Balance-weighted proposer sampling over the shuffled candidate stream."""
+    spec = spec or get_chain_spec()
+    assert len(indices) > 0
+    max_eb = spec.MAX_EFFECTIVE_BALANCE
+    total = len(indices)
+    perm = _shuffled_permutation(total, seed, spec)
+    i = 0
+    while True:
+        candidate = indices[perm[i % total]]
+        random_byte = hash_bytes(seed + (i // 32).to_bytes(8, "little"))[i % 32]
+        if effective_balances[candidate] * 255 >= max_eb * random_byte:
+            return int(candidate)
+        i += 1
+
+
+# --------------------------------------------------------- domains / roots
+
+def compute_fork_data_root(
+    current_version: bytes, genesis_validators_root: bytes
+) -> bytes:
+    return ForkData(
+        current_version=current_version,
+        genesis_validators_root=genesis_validators_root,
+    ).hash_tree_root()
+
+
+def compute_fork_digest(
+    current_version: bytes, genesis_validators_root: bytes
+) -> bytes:
+    return compute_fork_data_root(current_version, genesis_validators_root)[:4]
+
+
+def compute_domain(
+    domain_type: bytes,
+    fork_version: bytes | None = None,
+    genesis_validators_root: bytes | None = None,
+    spec: ChainSpec | None = None,
+) -> bytes:
+    spec = spec or get_chain_spec()
+    if fork_version is None:
+        fork_version = spec.GENESIS_FORK_VERSION
+    if genesis_validators_root is None:
+        genesis_validators_root = b"\x00" * 32
+    fork_data_root = compute_fork_data_root(fork_version, genesis_validators_root)
+    return domain_type + fork_data_root[:28]
+
+
+def compute_signing_root(ssz_object, domain: bytes) -> bytes:
+    """Root actually signed: mix the object root with the domain
+    (ref: misc.ex:244-264)."""
+    return SigningData(
+        object_root=ssz_object.hash_tree_root(), domain=domain
+    ).hash_tree_root()
+
+
+def compute_signing_root_bytes(object_root: bytes, domain: bytes) -> bytes:
+    """Signing root when the object root is already known (e.g. block roots)."""
+    return SigningData(object_root=object_root, domain=domain).hash_tree_root()
+
+
+def compute_signing_root_epoch(epoch: int, domain: bytes) -> bytes:
+    """Signing root of a bare uint64 epoch (randao reveals sign the epoch)."""
+    return compute_signing_root_bytes(epoch.to_bytes(8, "little") + b"\x00" * 24, domain)

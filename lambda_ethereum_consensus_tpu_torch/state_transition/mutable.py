@@ -1,0 +1,317 @@
+"""Mutable working state for the duration of one state transition.
+
+The port's copy of the JAX package's ``state_transition/mutable.py``.  One
+difference: ``TrackedList.sort`` and ``reverse`` log a structural mutation
+(in the JAX package's file they sit after a ``return`` and never bind).
+
+SSZ containers are immutable (``Container.__setattr__`` raises); spec code is
+mutation-heavy.  ``BeaconStateMut`` unwraps a ``BeaconState`` into plain
+attributes with shallow-copied lists, lets the transition mutate freely, and
+freezes back into a container at the end.  It also maintains *columnar* numpy
+views of the validator registry (effective balances, activation/exit epochs,
+slashed flags) so epoch passes run vectorized instead of per-validator Python
+loops — the reference walks Elixir lists per validator (ref:
+state_transition/epoch_processing.ex:11-378); here the registry is the
+data-parallel axis.
+
+Round 13 makes the big list fields *delta-observable*: each rides in a
+:class:`TrackedList` that logs its own touched indices and, when
+adopt-copied across freeze/thaw, points at the list it was copied from.
+A consumer that snapshotted an earlier instance — the incremental root
+engine (ssz/incremental.py) — walks that parent chain and unions the
+per-instance logs to get a provable superset of the changed leaves,
+instead of diffing a million elements per slot.  Tracking is exact by
+construction: every mutation path goes through the list object itself
+(``balances[i] += delta``, ``participation[i] |= flag``, ``append``),
+and anything per-index logging can't describe (slices, deletions,
+wholesale replacement via attribute assignment, unknown provenance)
+bumps a structural marker that makes consumers refuse the chain and
+fall back to exact value-diffing — the conservative direction, never a
+wrong root.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import numpy as np
+
+from ..types.beacon import BeaconState
+
+_LIST_FIELDS = (
+    "block_roots",
+    "state_roots",
+    "historical_roots",
+    "eth1_data_votes",
+    "validators",
+    "balances",
+    "randao_mixes",
+    "slashings",
+    "previous_epoch_participation",
+    "current_epoch_participation",
+    "inactivity_scores",
+    "historical_summaries",
+)
+
+
+# ancestors older than this many copies are unreachable to consumers (a
+# consumer that roots every slot is at most one copy behind), so the
+# adopt path cuts the parent chain here — otherwise every block's lists
+# would pin every predecessor's lists alive back to genesis
+_MAX_CHAIN = 4
+
+
+class TrackedList(list):
+    """A list that logs its own mutations and remembers which list it was
+    copied from.
+
+    A consumer (the incremental root engine) snapshots an instance and
+    later asks: "which indices might differ from my snapshot?"  The
+    answer is the union of ``dirty`` sets along the ``parent`` chain from
+    the current instance back to the snapshotted one — an
+    over-approximation (safe: extra indices only cost extra hashes),
+    never an under-approximation: every point write and append logs its
+    index, and anything per-index logging can't describe (slices,
+    deletions, wholesale replacement, unknown provenance) bumps
+    ``full_gen`` so the chain walk refuses and the consumer falls back
+    to a value diff.  Branched lineages (two mutated copies of one
+    state) are inherently safe: a branch the consumer didn't snapshot
+    can never reach the snapshot instance through ``parent``.
+    """
+
+    __slots__ = ("dirty", "gen", "full_gen", "parent")
+
+    def __init__(self, iterable=()):
+        super().__init__(iterable)
+        self.dirty: set[int] = set()
+        # unknown provenance counts as one structural event: consumers
+        # must full-diff once before the per-index log means anything
+        self.gen = 1
+        self.full_gen = 1
+        self.parent = None
+
+    @classmethod
+    def adopt(cls, value) -> "TrackedList":
+        """Shallow-copy ``value`` keeping the delta chain connected: the
+        copy starts clean and points at its source, so a consumer that
+        snapshotted the source reads (source.dirty | copy.dirty) as the
+        exact superset of changed indices."""
+        out = cls(value)
+        if isinstance(value, TrackedList):
+            out.gen = 0
+            out.full_gen = 0
+            out.parent = value
+            node, depth = value, 1
+            while node.parent is not None:
+                if depth >= _MAX_CHAIN:
+                    node.parent = None  # release ancient ancestors
+                    break
+                node, depth = node.parent, depth + 1
+        return out
+
+    # -- exact per-index logging
+    def _point(self, index: int) -> None:
+        self.gen += 1
+        self.dirty.add(index)
+
+    def _structural(self) -> None:
+        self.gen += 1
+        self.full_gen = self.gen
+
+    def __setitem__(self, index, value):
+        if isinstance(index, slice):
+            self._structural()
+        else:
+            self._point(index if index >= 0 else len(self) + index)
+        super().__setitem__(index, value)
+
+    def append(self, value):
+        self._point(len(self))
+        super().append(value)
+
+    # -- structural mutations: per-index deltas can't describe them
+    def __delitem__(self, index):
+        self._structural()
+        list.__delitem__(self, index)
+
+    def __iadd__(self, other):
+        self._structural()
+        return list.__iadd__(self, other)
+
+    def __imul__(self, other):
+        self._structural()
+        return list.__imul__(self, other)
+
+    def extend(self, other):
+        self._structural()
+        list.extend(self, other)
+
+    def insert(self, index, value):
+        self._structural()
+        list.insert(self, index, value)
+
+    def pop(self, index=-1):
+        self._structural()
+        return list.pop(self, index)
+
+    def remove(self, value):
+        self._structural()
+        list.remove(self, value)
+
+    def clear(self):
+        self._structural()
+        list.clear(self)
+
+    def sort(self, **kwargs):
+        self._structural()
+        list.sort(self, **kwargs)
+
+    def reverse(self):
+        self._structural()
+        list.reverse(self)
+
+
+def dirty_superset(value, target, stamp_gen: int) -> frozenset | None:
+    """A provable superset of the indices at which ``value`` may differ
+    from ``target``'s content as of generation ``stamp_gen``, by walking
+    the adopt chain from ``value`` back to ``target`` and unioning the
+    per-instance mutation logs.
+
+    THE one copy of the delta-chain walk, shared by both consumers: the
+    incremental root engine (ssz/incremental.py ``_consume_delta``) and
+    the resident epoch plane's delta sync (state_transition/resident.py),
+    which uses it to narrow the host mirror compare to the touched
+    indices instead of diffing the full column per boundary.
+
+    ``None`` means the chain can't vouch (unstamped, branched lineage,
+    a structural op anywhere along the walk, or a structural op on the
+    stamped instance after the stamp) — callers then value-diff, which
+    is always exact.  The returned set over-approximates (pre-stamp
+    dirty entries ride along): safe, extra indices only cost extra
+    compares/hashes.
+    """
+    if target is None or getattr(value, "gen", None) is None:
+        return None
+    delta: set[int] = set()
+    node = value
+    for _ in range(2 * _MAX_CHAIN):
+        if node is target:
+            if node.full_gen > stamp_gen:
+                return None  # structural op since the stamp
+            delta.update(node.dirty)  # over-approx: pre-stamp too
+            return frozenset(delta)
+        if node.full_gen > 0:
+            return None  # structural op in an intermediate copy
+        delta.update(node.dirty)
+        node = node.parent
+        if node is None:
+            return None
+    return None
+
+
+class BeaconStateMut:
+    """Working copy of a BeaconState; mutate freely, then :meth:`freeze`."""
+
+    def __init__(self, state: BeaconState):
+        for name in BeaconState.fields():
+            value = getattr(state, name)
+            if name in _LIST_FIELDS:
+                value = TrackedList.adopt(value)
+            object.__setattr__(self, name, value)
+        object.__setattr__(self, "_registry_cache", None)
+        object.__setattr__(self, "_pubkey_index", None)
+        # incremental-root engine rides the state lineage (ssz/incremental):
+        # process_slot reuses it across slots AND across freeze/thaw cycles
+        object.__setattr__(self, "_root_engine", getattr(state, "_root_engine", None))
+        # resident transition plane (state_transition/resident): same ride
+        object.__setattr__(
+            self, "_resident_plane", getattr(state, "_resident_plane", None)
+        )
+
+    def __setattr__(self, name, value):
+        # wholesale field replacement (epoch resets, set_balances): keep
+        # the field observable but degrade its log to full — the one
+        # mutation class per-index tracking cannot describe
+        if name in _LIST_FIELDS and not isinstance(value, TrackedList):
+            value = TrackedList(value)
+        object.__setattr__(self, name, value)
+
+    # -- freeze back to the immutable container
+    def freeze(self) -> BeaconState:
+        fields = {name: getattr(self, name) for name in BeaconState.fields()}
+        out = object.__new__(BeaconState)
+        for k, v in fields.items():
+            object.__setattr__(out, k, v)
+        if self._root_engine is not None:
+            object.__setattr__(out, "_root_engine", self._root_engine)
+        if self._resident_plane is not None:
+            object.__setattr__(out, "_resident_plane", self._resident_plane)
+        return out
+
+    # -- registry columns (numpy views over the validators list)
+    def registry(self) -> dict:
+        """Columnar registry arrays; invalidated by :meth:`touch_registry`."""
+        if self._registry_cache is None:
+            vals = self.validators
+            n = len(vals)
+            cols = {
+                "effective_balance": np.fromiter(
+                    (v.effective_balance for v in vals), np.uint64, n
+                ),
+                "slashed": np.fromiter((bool(v.slashed) for v in vals), np.bool_, n),
+                "activation_eligibility_epoch": np.fromiter(
+                    (v.activation_eligibility_epoch for v in vals), np.uint64, n
+                ),
+                "activation_epoch": np.fromiter(
+                    (v.activation_epoch for v in vals), np.uint64, n
+                ),
+                "exit_epoch": np.fromiter((v.exit_epoch for v in vals), np.uint64, n),
+                "withdrawable_epoch": np.fromiter(
+                    (v.withdrawable_epoch for v in vals), np.uint64, n
+                ),
+            }
+            self._registry_cache = cols
+        return self._registry_cache
+
+    def touch_registry(self) -> None:
+        """Invalidate registry columns after mutating ``validators``."""
+        self._registry_cache = None
+
+    def update_validator(self, index: int, **changes) -> None:
+        self.validators[index] = self.validators[index].copy(**changes)
+        self.touch_registry()
+
+    def pubkey_index(self) -> dict[bytes, int]:
+        """pubkey -> validator index map (pubkeys never change once added)."""
+        if self._pubkey_index is None:
+            self._pubkey_index = {
+                bytes(v.pubkey): i for i, v in enumerate(self.validators)
+            }
+        return self._pubkey_index
+
+    def append_validator(self, validator, balance: int) -> None:
+        """Registry append (deposits): keeps the pubkey map incremental."""
+        index = len(self.validators)
+        self.validators.append(validator)
+        self.balances.append(balance)
+        self.previous_epoch_participation.append(0)
+        self.current_epoch_participation.append(0)
+        self.inactivity_scores.append(0)
+        if self._pubkey_index is not None:
+            self._pubkey_index[bytes(validator.pubkey)] = index
+        self.touch_registry()
+
+    def balances_array(self) -> np.ndarray:
+        return np.asarray(self.balances, dtype=np.uint64)
+
+    def set_balances(self, arr: Iterable[int]) -> None:
+        self.balances = [int(b) for b in arr]
+
+    def participation_array(self, which: str) -> np.ndarray:
+        return np.asarray(getattr(self, f"{which}_epoch_participation"), np.uint8)
+
+    def active_indices(self, epoch: int) -> np.ndarray:
+        """Indices active at ``epoch`` (vectorized is_active_validator)."""
+        reg = self.registry()
+        mask = (reg["activation_epoch"] <= epoch) & (epoch < reg["exit_epoch"])
+        return np.nonzero(mask)[0]

@@ -34,6 +34,11 @@ def test_port_imports_without_jax_or_the_jax_package():
     for module in (
         "crypto.bls.api", "crypto.bls.batch", "da.kzg", "ops.bls_batch", "ops.rlc",
         "ops.bls_g1", "ops.bls_g2", "ops.bls_pairing", "ops.bls_sign", "ops.sha256",
-        "ssz.core", "types.beacon",
+        "ssz.core", "ssz.incremental", "types.beacon",
+        "state_transition.accessors", "state_transition.core", "state_transition.epoch",
+        "state_transition.errors", "state_transition.genesis", "state_transition.math",
+        "state_transition.misc", "state_transition.mutable", "state_transition.mutators",
+        "state_transition.operations", "state_transition.predicates",
+        "state_transition.resident", "validator.duties",
     ):
         assert prefix + module in names
