@@ -5,15 +5,19 @@
 Phases (any mismatch or exception ends the run with a nonzero exit):
 
 1. the card's name and power limit, and the kernels built from ``csrc/``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together) beside the native host
+   library (``g++`` of ``native/bls381/bls381.cpp`` into ``_build/``, then
+   its self-check against the pure-Python path);
 2. every kernel against its plain PyTorch version on the card, bit for bit,
    at the main paths' shapes (SHA-256 nodes, and the three field kernels at
    1, 7, 33, 1024, 4072, 20360 and 1,048,576 lanes and on both sides of
    ``mul_mod``'s group threshold, with the edge values 0, 1 and p-1 and a
    broadcast (32, 1) operand), plus a hashlib sample; kernels and plain
    versions timed with CUDA events;
-3. the state-root leg: ``BeaconState.hash_tree_root`` of a mainnet-preset
-   state with 1,000,000 seeded validators through
+3. the state-root leg: 65,536 seeded pubkeys derived on the card by
+   ``batch_g1_mul``, then ``BeaconState.hash_tree_root`` of a mainnet-preset
+   state with 1,000,000 seeded validators (validator i holding the i mod
+   16,384-th key) through
    ``install_device_backend()``, cold and warm, each equal to the hashlib
    root, with the SHA-256 launch count read around each root and the node
    count of every launch of a third root recorded;
@@ -30,6 +34,26 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    profiled), and a copy with one attestation signature swapped rejected;
    then the engine's full-field rebuild at 2^8 to 2^20 chunks through
    hashlib and through the device backend;
+3c. the node's slot through the port's fork choice at that registry:
+   native ``g1_decompress_batch`` of the 65,536 distinct keys timed (== the
+   card's points); a store anchored at the epoch-start state
+   (``process_slots`` across the boundary, ``get_forkchoice_store``); the
+   registry planes built cold (decompression, packing, upload timed apart);
+   a mainnet-shaped block (the 64 committees of each of the two slots
+   before it, 90-100 % participation, ~59,000 members, a live sync
+   aggregate) imported with ``on_block`` through the committee-cache
+   branch (profiled, SHA-256 and field launches counted), its post-state
+   rooted again through hashlib, a copy with one signature swapped
+   rejected; ``on_attestation_batch`` of two aggregates per committee from
+   the block's slot to the epoch's end (3,840, one at 50 % over ``mmax``),
+   cold, warm and profiled, every verdict None, the latest messages exactly
+   the participants' votes and ``get_head`` the block; a second drain of
+   512 fresh aggregates blaming exactly its forged one (``reject=True``);
+   64 aggregates against the host oracle (native ``rlc_verify``); the
+   aggregates over ``mmax`` counted through the block's and the cold
+   drain's host-sum routes; both block routes (``verify_points`` over host
+   sums, the committee cache's one chained check) timed on phase 3b's
+   block and on this one;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -45,8 +69,9 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    every signature equal to the host comb;
 6. signature sets: ``verify_points`` over those 1,024 entries, ``batch_verify``
    over their bytes, bisection blame of one swapped signature through
-   ``batch_verify_each_points``, a ``None`` point, and one entry (a block's
-   proposer signature) cold, warm and on the host;
+   ``batch_verify_each_points``, a ``None`` point, one entry (a block's
+   proposer signature) cold, warm and on the host, and the 1,024 entries on
+   the host tail (native ``rlc_verify``);
 7. batch scalar multiplication: the mainnet KZG dev setup (4,096 host scalar
    multiplications, timed), ``batch_g1_mul`` on its 4,096 points with 255-bit
    scalars, ``batch_g2_mul`` on 1,024 points with 64-bit scalars (``k = 0``
@@ -57,8 +82,9 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    card, each commitment equal to ``[sum_i blob_i L_i(tau)] G1`` and one to
    the per-term host MSM, the 6-blob fold ``True``, and with one proof swapped
    the fold ``False`` and ``verify_blob_proof`` blaming exactly that blob;
-9. the field kernels at the lane counts the drain, a sign flush and a KZG
-   MSM launch them with (launch-weighted median and 90th percentile): each
+9. the field kernels at the lane counts the drain, a sign flush, a KZG
+   MSM, the block import, the fork-choice drain and the mainnet block
+   import launch them with (launch-weighted median and 90th percentile): each
    against its plain version there, bit for bit, with a full and a
    broadcast (32, 1) right operand, then timed beside an empty kernel
    launched with the same grid (what a bare launch costs);
@@ -73,10 +99,10 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
 
 Every path of phases 3-8 is driven with the kernels' launch counts set to 0
 just before it and read just after; a path that launched a kernel of its
-own no time fails the run (the block import of phase 3b needs both the
-SHA-256 kernel and the three field kernels).  Needs one card, ``nvcc`` and ``cuobjdump``;
-exits nonzero without a card.  Longer records land in
-``chiprun_out/chip_smoke.json``.
+own no time fails the run (the block imports of phases 3b and 3c need both
+the SHA-256 kernel and the three field kernels).  Needs one card, ``nvcc``,
+``cuobjdump`` and ``g++``; exits nonzero without a card.  Longer records
+land in ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -92,6 +118,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -126,8 +153,17 @@ PAIR_CHECKS, PAIRS_PER_CHECK = 4, 8
 BLOB_WIDTH, N_BLOBS = 4096, 6
 # the state transition's block: full-committee aggregates of the previous
 # slot, 8 of the 64 committees (3,892 members at this 1,000,000-validator
-# state, under the JAX package's BLS_BLOCK_BATCH_MIN_MEMBERS of 4,096)
+# state, under operations.BLOCK_BATCH_MIN_MEMBERS, 4,096)
 ATT_COMMITTEES = 8
+# the node's slot (phase 3c): every validator keyed with one of REGISTRY_KEYS
+# seeded keys (validator i holds key i mod REGISTRY_KEYS); native batch
+# decompression timed on DISTINCT_KEYS distinct keys; a mainnet-shaped block
+# (the committees of the BLOCK_SLOTS slots before it), then a gossip drain of
+# DRAIN_COPIES aggregates per committee from the block's slot to the epoch's
+# end, a second drain of SECOND_DRAIN fresh aggregates with one forged, and
+# ORACLE_SAMPLE aggregates against the host oracle
+REGISTRY_KEYS, DISTINCT_KEYS = 16_384, 65_536
+BLOCK_SLOTS, DRAIN_COPIES, SECOND_DRAIN, ORACLE_SAMPLE = 2, 2, 512, 64
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -210,14 +246,15 @@ def _op_ms(opcodes: Counter, n: int, clock_mhz: float) -> float:
     return lane_clocks * n / (SMS * clock_mhz * 1e6) * 1e3
 
 
-def build_state(spec, n: int, seed: int):
+def build_state(spec, n: int, seed: int, keys: list[bytes]):
     """A mainnet-preset BeaconState with ``n`` seeded validators, two slots
     before an epoch boundary at which every pass has work: ~95 % of the
     registry with previous-epoch flags, nonzero inactivity scores on a
     fifth, slashed validators inside the slashings window (half of them
     penalty targets at this boundary), an activation queue, new
     eligibility marks, exits at the next epoch and balances on both sides
-    of the hysteresis thresholds.  Every pubkey is random bytes."""
+    of the hysteresis thresholds.  Validator i's pubkey is the compressed
+    key ``keys[i % len(keys)]``."""
     from lambda_ethereum_consensus_tpu_torch import ssz
     from lambda_ethereum_consensus_tpu_torch.config import constants
     from lambda_ethereum_consensus_tpu_torch.types import (
@@ -239,7 +276,7 @@ def build_state(spec, n: int, seed: int):
     def epochs(values) -> np.ndarray:
         return np.asarray(values, dtype=np.uint64)
 
-    pubkeys = rows(n, 48)
+    pubkeys = [keys[i % len(keys)] for i in range(n)]
     creds = rows(n, 32)
     incr = np.where(rng.random(n) < 0.9, 32, rng.integers(17, 32, n))
     eligibility = epochs(rng.integers(0, 250_000, n))
@@ -782,6 +819,20 @@ def _aggregate_attestation(state, data, committee, sks: dict, spec):
                        signature=C.g2_to_bytes(C.g2.multiply_raw(hash_to_g2(root, DST_POP), k)))
 
 
+def registry_keys(dev, rng) -> tuple[list[int], list, list[bytes], float]:
+    """DISTINCT_KEYS seeded secret keys, their pubkey points derived on the
+    card by ``batch_g1_mul``, and the compressed pubkeys; the registry uses
+    the first REGISTRY_KEYS.  Returns (keys, points, compressed, seconds)."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.ops.bls_g1 import batch_g1_mul
+
+    sks = [int.from_bytes(rng.bytes(32), "big") % (C.R - 1) + 1 for _ in range(DISTINCT_KEYS)]
+    t0 = time.perf_counter()
+    points = batch_g1_mul([C.G1_GENERATOR] * DISTINCT_KEYS, sks, device=dev)
+    seconds = time.perf_counter() - t0
+    return sks, points, [C.g1_to_bytes(p) for p in points], seconds
+
+
 def _real_keys(dev, rng, indices: list) -> tuple[dict, dict]:
     """Seeded secret keys for ``indices`` and their pubkey points, derived
     on the card by ``batch_g1_mul``."""
@@ -807,7 +858,7 @@ def transition_phase(dev, rng, record: dict, state, spec):
     profiled) on the walk's end state under an engine that has rooted only
     that state, its post-state rooted again through hashlib, and a copy with
     one attestation signature swapped is rejected.  Returns the import as a
-    path for phase 9."""
+    path for phase 9, the keyed start state and its keys for phase 3c."""
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
     from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
     from lambda_ethereum_consensus_tpu_torch.ssz import HashlibBackend, set_hash_backend
@@ -837,6 +888,7 @@ def transition_phase(dev, rng, record: dict, state, spec):
     sks, points = _real_keys(dev, rng, keyed)
     pubkeys = {i: C.g1_to_bytes(points[i]) for i in keyed}
     keys_s = time.perf_counter() - t0
+    start_sks = dict(sks)
     for i in keyed:
         ws.validators[i] = ws.validators[i].copy(pubkey=pubkeys[i])
     ws.touch_registry()
@@ -937,7 +989,9 @@ def transition_phase(dev, rng, record: dict, state, spec):
             signed.message.body.hash_tree_root(spec, backend=HashlibBackend()):
         raise AssertionError("the imported header does not carry the block's body")
     parent = _primed(card, spec)
-    wall, busy = _profiled(lambda: import_block(signed, parent))
+    block_set = []
+    with _block_sets(block_set):
+        wall, busy = _profiled(lambda: import_block(signed, parent))
 
     body = signed.message.body
     swapped = list(body.attestations)
@@ -1004,7 +1058,495 @@ def transition_phase(dev, rng, record: dict, state, spec):
         finally:
             set_hash_backend(prev)
 
-    return import_path
+    return dict(import_path=import_path, start=start, start_sks=start_sks, sync_keys=sync_keys,
+                block_set=block_set[0])
+
+
+def _epoch_committees(ws, epoch: int, spec) -> tuple[int, dict]:
+    """Every committee of ``epoch`` by the spec's ``compute_committee``
+    over the active set, ``{(slot, index): [validators]}``, and the
+    committees per slot."""
+    from lambda_ethereum_consensus_tpu_torch.config import constants
+    from lambda_ethereum_consensus_tpu_torch.state_transition import accessors, misc
+
+    active = ws.active_indices(epoch)
+    per_slot = accessors.get_committee_count_per_slot(ws, epoch, spec)
+    seed = accessors.get_seed(ws, epoch, constants.DOMAIN_BEACON_ATTESTER, spec)
+    count = per_slot * spec.SLOTS_PER_EPOCH
+    first = epoch * spec.SLOTS_PER_EPOCH
+    return per_slot, {
+        (first + c // per_slot, c % per_slot): misc.compute_committee(active, seed, c, count, spec)
+        for c in range(count)
+    }
+
+
+def _signed_aggregates(dev, state, items, sk_of, spec, forged=()) -> tuple[list, list]:
+    """Aggregate attestations for ``items`` = [(data, committee, bits)], each
+    signed as H(m) * (sum of its participants' keys), the multiplications on
+    the card by ``batch_g2_mul``; an item whose position is in ``forged`` is
+    signed with its key plus one.  Returns (attestations, aggregate keys)."""
+    from lambda_ethereum_consensus_tpu_torch.config import constants
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import hash_to_g2_many
+    from lambda_ethereum_consensus_tpu_torch.ops.bls_g2 import batch_g2_mul
+    from lambda_ethereum_consensus_tpu_torch.state_transition import accessors, misc
+    from lambda_ethereum_consensus_tpu_torch.types import Attestation
+
+    domain = accessors.get_domain(state, constants.DOMAIN_BEACON_ATTESTER,
+                                  items[0][0].target.epoch, spec)
+    roots = [misc.compute_signing_root(data, domain) for data, _, _ in items]
+    distinct = list(dict.fromkeys(roots))
+    hashed = dict(zip(distinct, hash_to_g2_many(distinct)))
+    keys = [
+        (sum(sk_of(v) for v, bit in zip(committee, bits) if bit) + (j in forged)) % C.R
+        for j, (_, committee, bits) in enumerate(items)
+    ]
+    sigs = batch_g2_mul([hashed[r] for r in roots], keys, device=dev)
+    atts = [Attestation(aggregation_bits=[bool(b) for b in bits], data=data,
+                        signature=C.g2_to_bytes(sig))
+            for (data, _, bits), sig in zip(items, sigs)]
+    return atts, keys
+
+
+def _participation(rng, k: int, low: float = 0.9, high: float = 1.0) -> np.ndarray:
+    """A committee's aggregation bits at a participation drawn from
+    [low, high], at least one bit set."""
+    bits = rng.random(k) < rng.uniform(low, high)
+    bits[rng.integers(0, k)] = True
+    return bits
+
+
+@contextlib.contextmanager
+def _block_sets(seen: list):
+    """Record the signature set of every block imported inside: a working
+    copy of the state and the deferred attestations that
+    ``operations._verify_deferred_attestations`` received."""
+    from lambda_ethereum_consensus_tpu_torch.state_transition import operations
+    from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+
+    real = operations._verify_deferred_attestations
+
+    def capture(state, deferred, spec, device=None):
+        seen.append((BeaconStateMut(state.freeze()), list(deferred)))
+        return real(state, deferred, spec, device)
+
+    operations._verify_deferred_attestations = capture
+    try:
+        yield
+    finally:
+        operations._verify_deferred_attestations = real
+
+
+@contextlib.contextmanager
+def _entry_counts(module, attr: str, seen: list):
+    """Record the entry count of every call of ``module.attr`` inside."""
+    real = getattr(module, attr)
+
+    def counted(entries, *args, **kwargs):
+        seen.append(len(entries))
+        return real(entries, *args, **kwargs)
+
+    setattr(module, attr, counted)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real)
+
+
+def block_routes(dev, spec, block_sets: dict) -> dict:
+    """Both routes of ``_verify_deferred_attestations`` on each block's
+    signature set, on the card: ``verify_points`` over host sums of the
+    members' keys, and the committee cache's one chained check.  Each route
+    runs twice, first cold (``verify_points`` with the pubkey decompression
+    cache as the run left it, the committee cache with no state context:
+    the epoch's committees and their sums built again), then warm; every
+    verdict must be True."""
+    from lambda_ethereum_consensus_tpu_torch.fork_choice import attestation as FA
+    from lambda_ethereum_consensus_tpu_torch.state_transition import operations
+
+    saved = operations.BLOCK_BATCH_MIN_MEMBERS
+    out = {}
+    try:
+        for name, (state, deferred) in block_sets.items():
+            members = sum(len(ind.attesting_indices) for _, ind, _, _ in deferred)
+            row = dict(aggregates=len(deferred), members=members)
+            for route, threshold in (("points", members + 1), ("cached", 0)):
+                operations.BLOCK_BATCH_MIN_MEMBERS = threshold
+                for run in ("first", "warm"):
+                    if route == "cached" and run == "first":
+                        FA._STATE_CTX.clear()
+                    _sync()
+                    t0 = time.perf_counter()
+                    ok = operations._verify_deferred_attestations(state, deferred, spec, dev)
+                    _sync()
+                    row[f"{route}_{run}_s"] = time.perf_counter() - t0
+                    if ok is not True:
+                        raise AssertionError(f"{name}: the {route} route rejected the block")
+            out[name] = row
+            print(f"{name} ({len(deferred)} aggregates, {members} members), both routes True: "
+                  f"verify_points over host sums {row['points_first_s']:.3f} s first, "
+                  f"{row['points_warm_s']:.3f} s warm; committee cache "
+                  f"{row['cached_first_s']:.3f} s with a cold state context, "
+                  f"{row['cached_warm_s']:.3f} s warm")
+    finally:
+        operations.BLOCK_BATCH_MIN_MEMBERS = saved
+    return out
+
+
+def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: dict,
+               keys: list[int], points: list, compressed: list[bytes],
+               transition_set: tuple) -> dict:
+    """Phase 3c: a node's slot at 1,000,000 validators through the port's
+    fork choice on the card.
+
+    The store is anchored at the epoch-start state of phase 3b's keyed
+    registry (``process_slots`` across the boundary on the card).  The
+    registry planes are built cold and timed apart (native decompression of
+    the distinct keys, packing, upload), and native decompression is timed
+    again on DISTINCT_KEYS distinct keys.  A mainnet-shaped block (the
+    committees of the two slots before it, 90-100 % participation, a live
+    sync aggregate) is minted and imported with ``on_block`` (counted and
+    profiled, through the committee-cache branch), its post-state rooted
+    again through hashlib, and a copy with one signature swapped rejected.
+    Then ``on_attestation_batch`` drains two aggregates per committee from
+    the block's slot to the epoch's end (one at about 50 %, over ``mmax``),
+    cold, warm and profiled, every verdict None, the latest messages exactly
+    the participants' votes for the block and ``get_head`` the block; a
+    second drain of fresh aggregates blames exactly its forged one; and a
+    sample is held against the host oracle.  Last, both block routes are
+    timed on phase 3b's block (``transition_set``) and on this one.
+    Returns phase 9's paths."""
+    import torch
+
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+    from lambda_ethereum_consensus_tpu_torch.config import constants
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import native
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.batch import _verify_points_host
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import DST_POP
+    from lambda_ethereum_consensus_tpu_torch.fork_choice import attestation as FA
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.ops.bls_batch import _indexed_device
+    from lambda_ethereum_consensus_tpu_torch.ssz import HashlibBackend, set_hash_backend
+    from lambda_ethereum_consensus_tpu_torch.state_transition import (
+        StateTransitionError, accessors, misc, operations, process_slots, state_transition,
+    )
+    from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+    from lambda_ethereum_consensus_tpu_torch.types import BeaconBlock, BeaconBlockBody
+    from lambda_ethereum_consensus_tpu_torch.validator import duties
+
+    _reset_peak()
+    t_phase = time.perf_counter()
+    out: dict = {}
+    device_backend = sops.install_device_backend(dev)
+
+    def sk_of(v: int) -> int:
+        return start_sks.get(v) or keys[v % REGISTRY_KEYS]
+
+    # ---- native decompression and packing of DISTINCT_KEYS distinct keys
+    from lambda_ethereum_consensus_tpu_torch.ops.bls_batch import _g1_planes
+
+    native.library()  # built and checked in phase 1
+    t0 = time.perf_counter()
+    decoded = native.g1_decompress_batch(compressed)
+    decompress_s = time.perf_counter() - t0
+    if decoded != points:
+        raise AssertionError("native decompression != the points batch_g1_mul derived")
+    t0 = time.perf_counter()
+    _g1_planes(decoded)
+    pack_us = (time.perf_counter() - t0) / DISTINCT_KEYS * 1e6
+    us_per_key = decompress_s / DISTINCT_KEYS * 1e6
+    print(f"native g1_decompress_batch of {DISTINCT_KEYS} distinct keys (subgroup checks on): "
+          f"{decompress_s:.3f} s, {us_per_key:.1f} us per key; every point == batch_g1_mul's; "
+          f"packing {pack_us:.2f} us per key")
+
+    # ---- the store, anchored at the epoch start
+    epoch = int(start.slot) // spec.SLOTS_PER_EPOCH + 1
+    first = epoch * spec.SLOTS_PER_EPOCH
+    t0 = time.perf_counter()
+    anchor = process_slots(_with_engine(start), first, spec, dev)
+    anchor_state_root = anchor._root_engine.root(anchor, spec)
+    header = anchor.latest_block_header
+    anchor_root = header.hash_tree_root(spec)
+    anchor_block = BeaconBlock(slot=header.slot, proposer_index=header.proposer_index,
+                               parent_root=bytes(header.parent_root),
+                               state_root=anchor_state_root, body=BeaconBlockBody())
+    anchor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = FC.get_forkchoice_store(anchor, anchor_block, spec, anchor_root=anchor_root)
+    store_s = time.perf_counter() - t0
+    print(f"anchor: epoch {epoch} start (slot {first}) reached in {anchor_s:.3f} s; "
+          f"get_forkchoice_store {store_s:.3f} s (its full state root on the device backend)")
+
+    # ---- the registry planes, cold and apart from the rest
+    n = len(anchor.validators)
+    timed = {"decompress_s": 0.0}
+    real_points = FA._registry_points
+
+    def timed_points(pubkeys):
+        t = time.perf_counter()
+        try:
+            return real_points(pubkeys)
+        finally:
+            timed["decompress_s"] += time.perf_counter() - t
+
+    FA._registry_points = timed_points
+    try:
+        t0 = time.perf_counter()
+        rx, ry = FA.registry_planes(anchor, spec)
+        host_s = time.perf_counter() - t0
+    finally:
+        FA._registry_points = real_points
+    distinct = len({bytes(v.pubkey) for v in anchor.validators})
+    _sync()
+    t0 = time.perf_counter()
+    plane_store = FA.device_plane_store(anchor, spec, dev)
+    _sync()
+    upload_s = time.perf_counter() - t0
+    pack_s = host_s - timed["decompress_s"]
+    # a registry of n distinct keys: each decompressed and packed once, plus
+    # this run's walk over the validators and its upload
+    cold_1m_s = (us_per_key + pack_us) * n / 1e6 + pack_s + upload_s
+    out["registry"] = dict(validators=n, distinct_keys=distinct, build_s=host_s + upload_s,
+                           decompress_s=timed["decompress_s"], pack_s=pack_s,
+                           upload_s=upload_s, device_bytes=plane_store.resident_bytes,
+                           distinct_decompress_s=decompress_s, us_per_key=us_per_key,
+                           pack_us_per_key=pack_us, implied_distinct_s=cold_1m_s)
+    print(f"registry planes cold: {n} validators ({distinct} distinct keys) in "
+          f"{host_s + upload_s:.3f} s: decompression {timed['decompress_s']:.3f} s, packing "
+          f"{pack_s:.3f} s, upload {upload_s:.3f} s; {plane_store.resident_bytes / 2**20:.0f} MiB "
+          f"on the card; at {n} distinct keys the cold build would take about "
+          f"{cold_1m_s:.0f} s")
+
+    # ---- the block: the committees of the BLOCK_SLOTS slots before it
+    block_slot = first + BLOCK_SLOTS
+    pre = process_slots(_with_engine(anchor), block_slot, spec, dev)
+    pre_ws = BeaconStateMut(pre)
+    per_slot, table = _epoch_committees(pre_ws, epoch, spec)
+    heads = {accessors.get_block_root_at_slot(pre_ws, s, spec) for s in range(first, block_slot)}
+    if heads != {anchor_root}:
+        raise AssertionError("the slots before the block do not point at the anchor")
+    items = [
+        (duties.attestation_data_from_state(pre_ws, s, i, anchor_root, spec), table[(s, i)],
+         _participation(rng, len(table[(s, i)])))
+        for s in range(first, block_slot) for i in range(per_slot)
+    ]
+    t0 = time.perf_counter()
+    atts, _ = _signed_aggregates(dev, pre_ws, items, sk_of, spec)
+    proposer = duties.proposer_index_at_slot(pre_ws, block_slot, spec)
+    signed, post = duties.build_signed_block(
+        pre, block_slot, {proposer: sk_of(proposer).to_bytes(32, "big")}, attestations=atts,
+        spec=spec, sync_secret_keys=sync_keys, device=dev)
+    mint_s = time.perf_counter() - t0
+    members = sum(int(bits.sum()) for _, _, bits in items)
+    mmax = FA.get_state_attestation_context(pre, epoch, spec, dev).device_cache().mmax
+    if members < operations.BLOCK_BATCH_MIN_MEMBERS:
+        raise AssertionError(f"{members} members stay under the committee-cache branch")
+    # aggregates missing more members than the cache corrects take the host sum
+    block_over = sum(int((~bits).sum()) > mmax for _, _, bits in items)
+    print(f"block {block_slot}: {len(atts)} aggregates ({per_slot} committees x {BLOCK_SLOTS} "
+          f"slots, {members} attesting members, mmax {mmax}, {block_over} over it) and a live "
+          f"sync aggregate, minted in {mint_s:.3f} s")
+
+    # ---- import: a node's first of the epoch (no state context yet)
+    FC.on_tick(store, store.genesis_time + block_slot * spec.SECONDS_PER_SLOT, spec)
+    FA._STATE_CTX.clear()
+    routes = []
+    real_cached = operations._verify_deferred_cached
+
+    def counted_cached(*args):
+        routes.append(len(args[1]))
+        return real_cached(*args)
+
+    imported_root, block_set, host_sums = [], [], []
+    operations._verify_deferred_cached = counted_cached
+    try:
+        with _block_sets(block_set), _entry_counts(B, "verify_points", host_sums):
+            _zero_fq_launches()
+            sops.sha256_kernel_launches = 0
+            wall, busy = _profiled(lambda: imported_root.append(
+                FC.on_block(store, signed, spec=spec, device=dev)))
+            fq, sha = _launches(), sops.sha256_kernel_launches
+    finally:
+        operations._verify_deferred_cached = real_cached
+    block_root = imported_root[0]
+    _require_all(fq, "mainnet block import")
+    if not sha:
+        raise AssertionError("the mainnet block import launched no SHA-256 kernel")
+    if routes != [len(atts)]:
+        raise AssertionError(f"the block missed the committee-cache branch: {routes}")
+    if host_sums != ([block_over] if block_over else []):
+        raise AssertionError(f"{block_over} aggregates over mmax, host-summed: {host_sums}")
+    if block_root != signed.message.hash_tree_root(spec):
+        raise AssertionError("on_block returned another root than the block's")
+    imported = store.block_states[block_root]
+    t0 = time.perf_counter()
+    hashlib_root = imported.hash_tree_root(spec, backend=HashlibBackend())
+    hashlib_s = time.perf_counter() - t0
+    if hashlib_root != bytes(signed.message.state_root):
+        raise AssertionError(f"the imported state's hashlib root {hashlib_root.hex()} != the "
+                             f"block's state root {bytes(signed.message.state_root).hex()}")
+    print(f"on_block (validate_result=True, a cold state context, profiled): {wall:.3f} s; "
+          f"{sha} SHA-256 launches, {_total(fq)} field launches {fq}")
+    print(_idle_line("on_block", wall, busy))
+    print(f"imported state's root == the block's state root through hashlib "
+          f"({hashlib_s:.3f} s on the host)")
+
+    body = signed.message.body
+    swapped = list(body.attestations)
+    swapped[0] = swapped[0].copy(signature=bytes(swapped[1].signature))
+    bad = duties.sign_block(pre_ws, signed.message.copy(body=body.copy(attestations=swapped)),
+                            sk_of(proposer).to_bytes(32, "big"), spec)
+    t0 = time.perf_counter()
+    try:
+        FC.on_block(store, bad, spec=spec, device=dev)
+    except StateTransitionError as e:
+        if "invalid attestation signature" not in str(e):
+            raise
+        reject_s = time.perf_counter() - t0
+    else:
+        raise AssertionError("a block with a swapped attestation signature was imported")
+    print(f"swapped aggregate signature rejected in {reject_s:.3f} s")
+    out["block"] = dict(slot=block_slot, aggregates=len(atts), members=members, mmax=mmax,
+                        over_mmax=block_over,
+                        mint_s=mint_s, import_s=wall, device_busy_ms=busy,
+                        idle_share=1 - busy / 1e3 / wall, fq_launches=fq,
+                        sha256_launches=sha, hashlib_root_s=hashlib_s, reject_s=reject_s)
+
+    # ---- the drain: two aggregates per committee, block slot to epoch end
+    FC.on_tick(store, store.genesis_time + (first + spec.SLOTS_PER_EPOCH) * spec.SECONDS_PER_SLOT,
+               spec)
+    post_ws = BeaconStateMut(imported)
+    slots = range(block_slot, first + spec.SLOTS_PER_EPOCH)
+    items = [
+        (duties.attestation_data_from_state(post_ws, s, i, block_root, spec), table[(s, i)],
+         _participation(rng, len(table[(s, i)])))
+        for s in slots for i in range(per_slot) for _ in range(DRAIN_COPIES)
+    ]
+    sparse = len(items) // 2
+    items[sparse] = (*items[sparse][:2], _participation(rng, len(items[sparse][1]), 0.5, 0.5))
+    fresh = [(data, committee, _participation(rng, len(committee)))
+             for data, committee, _ in items[:SECOND_DRAIN]]
+    forged = SECOND_DRAIN // 3
+    t0 = time.perf_counter()
+    signed_all, agg_keys = _signed_aggregates(dev, post_ws, items + fresh, sk_of, spec,
+                                              forged={len(items) + forged})
+    drain_mint_s = time.perf_counter() - t0
+    drain, second = signed_all[:len(items)], signed_all[len(items):]
+    missing = int((~items[sparse][2]).sum())
+    if missing <= mmax:
+        raise AssertionError(f"the sparse aggregate misses {missing} members, within mmax {mmax}")
+    drain_over = [i for i, (_, _, bits) in enumerate(items) if int((~bits).sum()) > mmax]
+    print(f"drain: {len(drain)} aggregates ({len(slots)} slots x {per_slot} committees x "
+          f"{DRAIN_COPIES}; aggregate {sparse} missing {missing} members, over mmax {mmax}; "
+          f"{len(drain_over)} over it in all) "
+          f"and {len(second)} fresh ones, minted in {drain_mint_s:.3f} s")
+
+    def expect_accepted(verdicts, tag: str) -> None:
+        if any(v is not None for v in verdicts):
+            bad_at = [(i, str(v)) for i, v in enumerate(verdicts) if v is not None][:4]
+            raise AssertionError(f"{tag} drain rejected valid aggregates: {bad_at}")
+
+    # cold: the store's context and committee cache are built; warm: reused
+    # (the warm run is also the profiled one)
+    sparse_calls = []
+    with _entry_counts(B, "batch_verify_each_points", sparse_calls):
+        verdicts, cold_s, cold_launches = _counted(
+            lambda: FC.on_attestation_batch(store, drain, spec=spec, device=dev),
+            "fork-choice drain (cold)")
+    expect_accepted(verdicts, "cold")
+    if sparse not in drain_over or sparse_calls != [len(drain_over)]:
+        raise AssertionError(f"{len(drain_over)} aggregates over mmax, the sparse route "
+                             f"took {sparse_calls}")
+    ctxs = list(store.attestation_contexts.values())
+    if len(ctxs) != 1 or ctxs[0]._device_cache is None or \
+            ctxs[0].device != _indexed_device(dev):
+        raise AssertionError("the drain did not run on one committee cache on the card")
+    warm = []
+    _zero_fq_launches()
+    prof_s, prof_busy = _profiled(
+        lambda: warm.append(FC.on_attestation_batch(store, drain, spec=spec, device=dev)))
+    warm_launches = _launches()
+    _require_all(warm_launches, "fork-choice drain (warm)")
+    expect_accepted(warm[0], "warm")
+    runs = [(cold_s, cold_launches), (prof_s, warm_launches)]
+    voters = set()
+    for _, committee, bits in items:
+        voters.update(v for v, bit in zip(committee, bits) if bit)
+    messages = store.latest_messages
+    if set(messages) != voters or any(
+            (m.epoch, m.root) != (epoch, block_root) for m in messages.values()):
+        raise AssertionError("latest messages != the drain's participants voting for the block")
+    t0 = time.perf_counter()
+    head = FC.get_head(store, spec)
+    head_s = time.perf_counter() - t0
+    if head != block_root or store.head_cache.head() != block_root:
+        raise AssertionError(f"get_head {head.hex()} is not the block {block_root.hex()}")
+    print(f"sparse host-aggregate route: {sparse_calls[0]} entries (aggregate {sparse} "
+          f"among them) through batch_verify_each_points in the cold drain")
+    print(f"on_attestation_batch of {len(drain)} aggregates: cold {runs[0][0]:.3f} s, warm "
+          f"(profiled) {runs[1][0]:.3f} s; every verdict None; {_total(runs[1][1])} field "
+          f"launches {runs[1][1]} (cold {_total(runs[0][1])})")
+    print(_idle_line("warm drain", prof_s, prof_busy))
+    print(f"latest messages == the {len(voters)} participants' votes for the block; get_head "
+          f"== the block in {head_s:.3f} s")
+
+    verdicts, second_s, second_launches = _counted(
+        lambda: FC.on_attestation_batch(store, second, spec=spec, device=dev),
+        "fork-choice drain (forged)")
+    blamed = [i for i, v in enumerate(verdicts) if v is not None]
+    if blamed != [forged] or not verdicts[forged].reject:
+        raise AssertionError(f"the second drain blamed {blamed}")
+    print(f"second drain of {len(second)} fresh aggregates: exactly aggregate {forged} rejected "
+          f"(reject=True) in {second_s:.3f} s, {_total(second_launches)} field launches")
+
+    # ---- a sample against the host oracle (native rlc_verify)
+    pick = np.linspace(0, len(drain) - 1, ORACLE_SAMPLE).astype(int).tolist()
+    domain = accessors.get_domain(post_ws, constants.DOMAIN_BEACON_ATTESTER, epoch, spec)
+    entries = [(native.g1_mul(C.G1_GENERATOR, agg_keys[i]),
+                misc.compute_signing_root(items[i][0], domain),
+                C.g2_from_bytes(bytes(drain[i].signature))) for i in pick]
+    t0 = time.perf_counter()
+    host_ok = _verify_points_host(entries, DST_POP, {})
+    oracle_s = time.perf_counter() - t0
+    entries[1] = (entries[1][0], entries[1][1], entries[0][2])
+    if host_ok is not True or _verify_points_host(entries, DST_POP, {}) is not False:
+        raise AssertionError("the host oracle disagrees with the drain's sample")
+    print(f"{ORACLE_SAMPLE}-aggregate sample: host oracle (native rlc_verify) True like the "
+          f"drain in {oracle_s:.3f} s, and False with one signature swapped")
+
+    # ---- both block routes on phase 3b's block and on this one
+    out["block_routes"] = block_routes(dev, spec, {"phase 3b block": transition_set,
+                                                   "mainnet block": block_set[0]})
+
+    peak = _peak_mib()
+    print(f"peak device memory in the node phase {peak:.0f} MiB")
+    set_hash_backend(HashlibBackend())
+    out["drain"] = dict(aggregates=len(drain), messages=len(slots) * per_slot,
+                        sparse_missing=missing, over_mmax=len(drain_over),
+                        mint_s=drain_mint_s,
+                        cold_s=runs[0][0], warm_s=runs[1][0], cold_launches=runs[0][1],
+                        warm_launches=runs[1][1], device_busy_ms=prof_busy,
+                        idle_share=1 - prof_busy / 1e3 / prof_s, voters=len(voters),
+                        get_head_s=head_s, second_aggregates=len(second), second_s=second_s,
+                        second_launches=second_launches, oracle_s=oracle_s)
+    out.update(anchor_s=anchor_s, store_s=store_s, peak_mib=peak,
+               seconds=time.perf_counter() - t_phase)
+    record["node"] = out
+
+    def drain_path():
+        return FC.on_attestation_batch(store, drain, spec=spec, device=dev)
+
+    def import_path():
+        prev = set_hash_backend(device_backend)
+        try:
+            return state_transition(_primed(anchor, spec), signed, validate_result=True,
+                                    spec=spec, device=dev)
+        finally:
+            set_hash_backend(prev)
+
+    return {"fork-choice drain": drain_path, "mainnet block import": import_path}
 
 
 def sign_phase(dev, rng, record: dict) -> dict:
@@ -1120,6 +1662,13 @@ def sets_phase(dev, rng, record: dict, duty: dict) -> None:
     host_s = time.perf_counter() - t0
     if not (ok is True and host_ok is True):
         raise AssertionError(f"one valid entry: device {ok}, host {host_ok}")
+    # the whole set on the host tail (native rlc_verify): the size gate's
+    # other side
+    t0 = time.perf_counter()
+    host_set_ok = B.verify_points(entries, message_points=memo, host=True)
+    host_set_s = time.perf_counter() - t0
+    if host_set_ok is not True:
+        raise AssertionError(f"the host tail over {len(entries)} valid entries: {host_set_ok}")
     wall, busy = _profiled(lambda: B.verify_points(entries, message_points=memo, device=dev))
     peak = _peak_mib()
     print(f"verify_points over {len(entries)} entries ({DUTY_MESSAGES} messages) True in "
@@ -1131,14 +1680,15 @@ def sets_phase(dev, rng, record: dict, duty: dict) -> None:
           f"{blame_s:.3f} s, {_total(blame_launches)} field launches")
     print("a None point: verify_points False")
     print(f"one entry (a proposer signature): cold {cold_s:.3f} s (hash_to_g2 included), warm "
-          f"{warm_s:.3f} s, {_total(warm_launches)} field launches; host pure-Python check "
-          f"{host_s:.3f} s")
+          f"{warm_s:.3f} s, {_total(warm_launches)} field launches; host check (native "
+          f"rlc_verify) {host_s:.3f} s; the {len(entries)} entries on the host {host_set_s:.3f} s")
     print(_idle_line("verify_points", wall, busy) + f"; peak device memory {peak:.0f} MiB")
     record["sets"] = dict(
         entries=len(entries), verify_points_s=set_s, verify_points_launches=set_launches,
         batch_verify_bytes_s=bytes_s, blame_s=blame_s, blame_launches=blame_launches,
         single_cold_s=cold_s, single_warm_s=warm_s, single_launches=warm_launches,
-        single_cold_launches=single_launches, single_host_s=host_s, host_pubkeys_s=pk_s,
+        single_cold_launches=single_launches, single_host_s=host_s, host_set_s=host_set_s,
+        host_pubkeys_s=pk_s,
         profiled_s=wall, device_busy_ms=busy, peak_mib=peak,
     )
 
@@ -1479,6 +2029,14 @@ def sha256_root_shapes(dev, hist: Counter, opcodes: Counter, clock_mhz: float) -
 T_START = time.perf_counter()
 
 
+def _timed_native_load() -> float:
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import native
+
+    t0 = time.perf_counter()
+    native.library()
+    return time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
@@ -1498,9 +2056,14 @@ def main() -> int:
     print(card)
     print(f"max SM clock {clock_mhz:.0f} MHz")
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    build_s = time.perf_counter() - t0
-    print(f"kernels built in {build_s:.2f} s: {sorted(libs)}")
+    # the native host library (g++, then its self-check) builds beside nvcc
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(_timed_native_load)
+        libs = _build.build_all()
+        build_s = time.perf_counter() - t0
+        native_s = host_build.result()
+    print(f"kernels built in {build_s:.2f} s: {sorted(libs)}; native host library built, "
+          f"loaded and self-checked in {native_s:.2f} s (g++ {' '.join(_build.HOST_FLAGS)})")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1567,10 +2130,13 @@ def main() -> int:
 
     # ---- phase 3: the slice — a 1M-validator mainnet state root on the card
     spec = mainnet_spec()
+    keys, key_points, compressed, keys_s = registry_keys(dev, rng)
+    print(f"{DISTINCT_KEYS} seeded pubkeys derived on the card by batch_g1_mul in {keys_s:.3f} s")
     t0 = time.perf_counter()
-    state = build_state(spec, N_VALIDATORS, SEED)
+    state = build_state(spec, N_VALIDATORS, SEED, compressed[:REGISTRY_KEYS])
     setup_s = time.perf_counter() - t0
-    print(f"setup: {N_VALIDATORS} validators built in {setup_s:.1f} s")
+    print(f"setup: {N_VALIDATORS} validators ({REGISTRY_KEYS} keys, validator i holding key "
+          f"i mod {REGISTRY_KEYS}) built in {setup_s:.1f} s")
     backend = sops.install_device_backend()
     roots, seconds, launches = [], [], []
     for _ in ("cold", "warm"):
@@ -1606,11 +2172,20 @@ def main() -> int:
     del backend, timed
 
     # ---- phase 3b: the state transition on the card, at the same state
-    record: dict = {"card": card}
+    record: dict = {"card": card, "build_s": build_s, "native_build_s": native_s,
+                    "registry_keys_s": keys_s}
     t0 = time.perf_counter()
-    block_import = transition_phase(dev, rng, record, state, spec)
+    transition = transition_phase(dev, rng, record, state, spec)
     print(f"state-transition phase {time.perf_counter() - t0:.1f} s")
     del state
+
+    # ---- phase 3c: the node's slot through fork choice, at the same registry
+    t0 = time.perf_counter()
+    node_paths = node_phase(dev, rng, record, spec, transition["start"], transition["start_sks"],
+                            transition["sync_keys"], keys, key_points, compressed,
+                            transition.pop("block_set"))
+    print(f"node phase {time.perf_counter() - t0:.1f} s")
+    del transition["start"], key_points, compressed
 
     # ---- phase 4: the signature leg — the attestation drain on the card
     t0 = time.perf_counter()
@@ -1640,7 +2215,8 @@ def main() -> int:
         "drain": drain,
         "sign flush": lambda: G2.g2_ladder(duty["points"], duty["scalars"], 256, dev),
         "KZG MSM": lambda: K.blob_to_commitment(blob, setup, device=dev),
-        "block import": block_import,
+        "block import": transition["import_path"],
+        **node_paths,
     }
     path_err, record["path_shapes"] = path_shape_timings(dev, rng, paths)
     mul_err, record["mul_body_sweep"] = body_sweep(

@@ -12,7 +12,8 @@ with independent coefficients ``r_i`` of ``coeff_bits`` bits (default
 :data:`COEFF_BITS`, 64, the JAX package's deployed ``BLS_RLC_BITS``), items
 grouped by distinct message.  Each check runs whole on the device
 (:func:`..ops.bls_batch.chain_verify`, or ``chain_verify_cached`` over an
-epoch committee cache for the attestation drain).  A failed range is split
+epoch committee cache for the attestation drain and, without blame, for a
+block's attestations: :func:`verify_cached`).  A failed range is split
 in half, level by level: every range of one bisection level goes to the
 device together as one chained call, so ``b`` bad items cost O(log N)
 device round trips.
@@ -21,18 +22,20 @@ Two pieces of the JAX package are not carried over.  Its
 ``BLS_DEVICE_CHAIN_MIN`` size gate sent small batches to the host; it was
 tuned to a TPU's dispatch cost, so here every check goes to the device until
 the card's crossover is measured.  Its containment re-verified on the host
-after a device fault; here a device error raises.  The pure-Python host
-tail, :func:`_verify_points_host`, runs only when the caller asks for it
-(``host=True``): the JAX package's native C++ RLC is not ported.
+after a device fault; here a device error raises.  The host tail,
+:func:`_verify_points_host` (the native C++ RLC check, else pure Python),
+runs only when the caller asks for it (``host=True``).
 """
 
 from __future__ import annotations
 
+import os
 import secrets
 from typing import Sequence
 
 from ...ops.rlc import COEFF_BITS
 from . import curve as C
+from . import native
 from .curve import DeserializationError
 from .hash_to_curve import DST_POP, hash_to_g2
 from .pairing import pairing_check
@@ -42,6 +45,7 @@ __all__ = [
     "batch_verify",
     "batch_verify_each_cached",
     "batch_verify_each_points",
+    "verify_cached",
     "verify_points",
 ]
 
@@ -122,7 +126,7 @@ def verify_points(
 ) -> bool:
     """The RLC check over already-decompressed, subgroup-checked points, as
     one chained check on ``device`` (default: the card); ``host=True`` runs
-    the pure-Python :func:`_verify_points_host` instead.
+    the host tail :func:`_verify_points_host` instead.
 
     A ``None`` point is undecodable, so the batch is invalid.
     ``message_points`` memoizes ``hash_to_g2`` across calls.
@@ -147,8 +151,15 @@ def _verify_points_host(
     message_points: dict,
     coeff_bits: int = COEFF_BITS,
 ) -> bool:
-    """The RLC check in pure Python: per-entry scalar products, group sums,
-    and the host :func:`.pairing.pairing_check`."""
+    """The RLC check on the host: the whole check in C++ through the native
+    library's ``rlc_verify`` (scalar products, group sums, lockstep Miller
+    loops, one final exponentiation), unless :func:`.native.enabled` is off
+    or ``BLS_NO_NATIVE_RLC`` is set; else in Python, per-entry scalar
+    products, group sums and :func:`.pairing.pairing_check`."""
+    no_rlc = os.environ.get("BLS_NO_NATIVE_RLC", "").strip().lower()
+    if native.enabled() and no_rlc in ("", "0", "false", "no", "off"):
+        packed, h_points, gids = _pack_check(entries, dst, message_points, coeff_bits)
+        return native.rlc_verify(packed, h_points, gids, coeff_bits)
     coeffs = [secrets.randbits(coeff_bits) | 1 for _ in entries]
     scaled_pks = [C.g1.multiply_raw(pk, r) for (pk, _, _), r in zip(entries, coeffs)]
     scaled_sigs = [C.g2.multiply_raw(sig, r) for (_, _, sig), r in zip(entries, coeffs)]
@@ -188,6 +199,46 @@ def batch_verify_each_points(
                    check_ranges)
 
 
+def _pack_cached(entries, index_range, dst: bytes, message_points: dict, coeff_bits: int):
+    """One ``chain_verify_cached`` check over ``entries[index_range]``: each
+    entry's committee id, missing members, signature and a fresh
+    coefficient, grouped by distinct message."""
+    group_of: dict[bytes, int] = {}
+    h_points: list = []
+    gids = []
+    packed = []
+    for i in index_range:
+        comm_id, miss, message, sig = entries[i]
+        g = group_of.get(message)
+        if g is None:
+            g = group_of[message] = len(h_points)
+            h_points.append(_message_point(message, dst, message_points))
+        gids.append(g)
+        packed.append((comm_id, miss, sig, secrets.randbits(coeff_bits) | 1))
+    return (packed, h_points, gids)
+
+
+def verify_cached(
+    cache,
+    entries: Sequence[tuple],
+    dst: bytes = DST_POP,
+    message_points: dict | None = None,
+    coeff_bits: int = COEFF_BITS,
+) -> bool:
+    """All-or-nothing check of :func:`batch_verify_each_cached`'s entries as
+    ONE chained check over the committee cache, with no blame: a block's
+    attestations have one verdict between them."""
+    from ...ops import bls_batch
+
+    if not entries:
+        return True
+    if any(entry[3] is None for entry in entries):
+        return False
+    check = _pack_cached(entries, range(len(entries)), dst,
+                         {} if message_points is None else message_points, coeff_bits)
+    return bls_batch.chain_verify_cached(cache, [check], coeff_bits)[0]
+
+
 def batch_verify_each_cached(
     cache,
     entries: Sequence[tuple],
@@ -209,23 +260,9 @@ def batch_verify_each_cached(
     if message_points is None:
         message_points = {}
 
-    def pack(index_range):
-        group_of: dict[bytes, int] = {}
-        h_points: list = []
-        gids = []
-        packed = []
-        for i in index_range:
-            comm_id, miss, message, sig = entries[i]
-            g = group_of.get(message)
-            if g is None:
-                g = group_of[message] = len(h_points)
-                h_points.append(_message_point(message, dst, message_points))
-            gids.append(g)
-            packed.append((comm_id, miss, sig, secrets.randbits(coeff_bits) | 1))
-        return (packed, h_points, gids)
-
     def check_ranges(ranges):
-        return bls_batch.chain_verify_cached(cache, [pack(r) for r in ranges], coeff_bits)
+        checks = [_pack_cached(entries, r, dst, message_points, coeff_bits) for r in ranges]
+        return bls_batch.chain_verify_cached(cache, checks, coeff_bits)
 
     return _bisect(len(entries), lambda i: entries[i][3] is None, check_ranges)
 

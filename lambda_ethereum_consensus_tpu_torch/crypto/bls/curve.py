@@ -11,9 +11,10 @@ Generator coordinates are the standard published values; import-time asserts
 verify they satisfy the curve equations and have order R, so a transcription
 error cannot survive module import.
 
-The port's own copy of the JAX package's ``crypto/bls/curve.py``: the
-pure-Python path only, without the native scalar-multiplication and batch
-decompression hooks (the batch decoders below take the per-point path).
+The port's own copy of the JAX package's ``crypto/bls/curve.py``.  Scalar
+multiplication and the batch decoders take the native library
+(:mod:`.native`, bound after its self-check) unless :func:`.native.enabled`
+is off; the pure-Python path stays as the oracle.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 from . import fields as F
+from . import native as _native
 from .fields import P, R
 
 AffinePoint = Optional[Tuple[Any, Any]]
@@ -41,6 +43,9 @@ class GroupOps:
     zero: Any
     one: Any
     is_zero: Callable
+    # the native library's scalar multiplication, same (pt, k) -> pt
+    # contract as _multiply_py; taken while native.enabled()
+    native_mul: Callable | None = None
 
     def scalar(self, a, k: int):
         if isinstance(a, int):
@@ -142,6 +147,8 @@ class GroupOps:
         """Scalar multiplication WITHOUT reducing k mod R (cofactor clearing)."""
         if pt is None or k == 0:
             return None
+        if self.native_mul is not None and _native.enabled():
+            return self.native_mul(pt, k)
         return self._multiply_py(pt, k)
 
     def _multiply_py(self, pt: AffinePoint, k: int) -> AffinePoint:
@@ -173,6 +180,7 @@ g1 = GroupOps(
     zero=0,
     one=1,
     is_zero=_int_is_zero,
+    native_mul=_native.g1_mul,
 )
 
 # The M-twist E': y^2 = x^3 + 4(1+u)
@@ -187,6 +195,7 @@ g2 = GroupOps(
     zero=F.FQ2_ZERO,
     one=F.FQ2_ONE,
     is_zero=F.fq2_is_zero,
+    native_mul=_native.g2_mul,
 )
 
 G1_GENERATOR: AffinePoint = (
@@ -205,11 +214,13 @@ G2_GENERATOR: AffinePoint = (
 )
 
 # Transcription-error firewall: the published generators must be on-curve and
-# of order R, or this module refuses to import.
-assert g1.on_curve(G1_GENERATOR), "G1 generator not on y^2 = x^3 + 4"
-assert g2.on_curve(G2_GENERATOR), "G2 generator not on the twist"
-assert g1.multiply_raw(G1_GENERATOR, R) is None, "G1 generator order != R"
-assert g2.multiply_raw(G2_GENERATOR, R) is None, "G2 generator order != R"
+# of order R, or this module refuses to import (on the pure-Python path:
+# importing builds nothing).
+with _native.pure_python():
+    assert g1.on_curve(G1_GENERATOR), "G1 generator not on y^2 = x^3 + 4"
+    assert g2.on_curve(G2_GENERATOR), "G2 generator not on the twist"
+    assert g1.multiply_raw(G1_GENERATOR, R) is None, "G1 generator order != R"
+    assert g2.multiply_raw(G2_GENERATOR, R) is None, "G2 generator order != R"
 
 
 # ------------------------------------------------------------ serialization
@@ -344,13 +355,19 @@ def _from_bytes_batch(decode, blobs, subgroup_check: bool) -> list:
 
 
 def g1_from_bytes_batch(blobs, subgroup_check: bool = True) -> list:
-    """Batch :func:`g1_from_bytes`, point by point.  Per item: affine point
-    | ``None`` (canonical infinity) | ``False`` (invalid encoding, point or
+    """Batch :func:`g1_from_bytes`: the native library's thread-pool
+    decompression with the endomorphism subgroup check, or point by point
+    when :func:`.native.enabled` is off.  Per item: affine point | ``None``
+    (canonical infinity) | ``False`` (invalid encoding, length, point or
     subgroup) — batch callers need per-item verdicts, not a first-failure
     exception."""
+    if _native.enabled():
+        return _native.g1_decompress_batch(blobs, subgroup_check)
     return _from_bytes_batch(g1_from_bytes, blobs, subgroup_check)
 
 
 def g2_from_bytes_batch(blobs, subgroup_check: bool = True) -> list:
     """Batch :func:`g2_from_bytes`; same conventions as the G1 batch."""
+    if _native.enabled():
+        return _native.g2_decompress_batch(blobs, subgroup_check)
     return _from_bytes_batch(g2_from_bytes, blobs, subgroup_check)

@@ -1,8 +1,7 @@
 """BLS12-381 extension-field tower: Fq, Fq2, Fq6, Fq12.
 
-The port's own copy of the JAX package's ``crypto/bls/fields.py`` (pure
-Python; the native powmod binding is left out).  Host arithmetic over the
-tower
+The port's own copy of the JAX package's ``crypto/bls/fields.py``: host
+arithmetic over the tower
 
     Fq2  = Fq[u]  / (u^2 + 1)
     Fq6  = Fq2[v] / (v^3 - (1 + u))
@@ -18,6 +17,8 @@ Conventions: an Fq element is an int in [0, P); Fq2 is ``(c0, c1)`` meaning
 """
 
 from __future__ import annotations
+
+from . import native
 
 # Base field modulus and main subgroup order of BLS12-381.
 P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
@@ -73,7 +74,10 @@ def fq2_scalar(a: Fq2, k: int) -> Fq2:
 
 def _fq_powmod(base: int, exp: int) -> int:
     """base^exp mod P (the hot primitive under square roots, Legendre
-    symbols and inversions)."""
+    symbols and inversions): the native library's Montgomery exponentiation,
+    bound after its self-check, unless :func:`.native.enabled` is off."""
+    if native.enabled():
+        return native.fp_powmod(base, exp)
     return pow(base, exp, P)
 
 

@@ -8,8 +8,10 @@ native/bls_nif/src/lib.rs:33-47).  Pipeline implemented here:
     -> simplified SWU on the 3-isogenous curve E2'
     -> 3-isogeny map to E2  -> point add -> clear cofactor (h_eff)
 
-The port's own copy of the JAX package's ``crypto/bls/hash_to_curve.py``:
-the pure-Python pipeline only, without the native batch hasher.
+The port's own copy of the JAX package's ``crypto/bls/hash_to_curve.py``.
+:func:`hash_to_g2` and :func:`hash_to_g2_many` take the native library's
+batch hasher (:mod:`.native`, bound after its self-check) unless
+:func:`.native.enabled` is off; the pure-Python pipeline stays as the oracle.
 
 Every long constant block below (isogeny coefficients, h_eff) is verified by
 import-time self-checks: a sample input must land on E2' after SSWU, on E2
@@ -22,6 +24,7 @@ from __future__ import annotations
 import hashlib
 
 from . import fields as F
+from . import native
 from .curve import AffinePoint, g2
 from .fields import P, R
 
@@ -177,7 +180,8 @@ def _derive_isogeny():
     return x_num, x_den, y_num, y_den
 
 
-_ISO_X_NUM, _ISO_X_DEN, _ISO_Y_NUM, _ISO_Y_DEN = _derive_isogeny()
+with native.pure_python():  # importing builds nothing
+    _ISO_X_NUM, _ISO_X_DEN, _ISO_Y_NUM, _ISO_Y_DEN = _derive_isogeny()
 
 
 def _horner(coeffs: list[F.Fq2], x: F.Fq2) -> F.Fq2:
@@ -210,6 +214,8 @@ def clear_cofactor(pt: AffinePoint) -> AffinePoint:
 
 def hash_to_g2(msg: bytes, dst: bytes = DST_POP) -> AffinePoint:
     """hash_to_curve for G2 (random-oracle variant)."""
+    if native.enabled():
+        return native.hash_to_g2_batch([msg], dst)[0]
     u0, u1 = hash_to_field_fq2(msg, 2, dst)
     q0 = iso_map(_sswu(u0))
     q1 = iso_map(_sswu(u1))
@@ -217,7 +223,10 @@ def hash_to_g2(msg: bytes, dst: bytes = DST_POP) -> AffinePoint:
 
 
 def hash_to_g2_many(msgs, dst: bytes = DST_POP) -> list[AffinePoint]:
-    """:func:`hash_to_g2` of each message, in order."""
+    """:func:`hash_to_g2` of each message, in order: one native batch
+    across a C++ thread pool, or the Python pipeline per message."""
+    if msgs and native.enabled():
+        return native.hash_to_g2_batch(list(msgs), dst)
     return [hash_to_g2(m, dst) for m in msgs]
 
 
@@ -260,4 +269,5 @@ def _self_check() -> None:
     )
 
 
-_self_check()
+with native.pure_python():
+    _self_check()

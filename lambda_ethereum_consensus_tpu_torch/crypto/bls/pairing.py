@@ -1,8 +1,10 @@
 """Optimal ate pairing for BLS12-381.
 
-The port's own copy of the JAX package's ``crypto/bls/pairing.py``: the
-pure-Python host path only (no device or native routing).  It is the oracle
-the port's device pairing is held against.
+The port's own copy of the JAX package's ``crypto/bls/pairing.py``: the host
+pairing, the oracle the port's device pairing is held against.
+:func:`pairing_check` takes the native library (:mod:`.native`, bound after
+its self-check) unless :func:`.native.enabled` is off; the device route of
+the JAX package is not ported.
 
 Replaces the pairing hidden inside the reference's blst dependency (ref:
 native/bls_nif/src/lib.rs — ``verify``/``fast_aggregate_verify`` all bottom
@@ -27,6 +29,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from . import fields as F
+from . import native
 from .curve import AffinePoint, g1, g2
 from .fields import BLS_X, BLS_X_IS_NEG, P, R
 
@@ -35,8 +38,9 @@ Fq12Point = Optional[Tuple[F.Fq12, F.Fq12]]
 # w is the Fq12 tower generator (w^2 = v).  Untwist divides x by w^2 and y by
 # w^3; both inverse powers are computed here rather than transcribed.
 _W: F.Fq12 = (F.FQ6_ZERO, F.FQ6_ONE)
-_W2_INV = F.fq12_inv(F.fq12_mul(_W, _W))
-_W3_INV = F.fq12_inv(F.fq12_mul(F.fq12_mul(_W, _W), _W))
+with native.pure_python():  # importing builds nothing
+    _W2_INV = F.fq12_inv(F.fq12_mul(_W, _W))
+    _W3_INV = F.fq12_inv(F.fq12_mul(F.fq12_mul(_W, _W), _W))
 
 
 def _embed_fq(a: int) -> F.Fq12:
@@ -155,8 +159,9 @@ def pairing(p: AffinePoint, q: AffinePoint) -> F.Fq12:
 def pairing_check(pairs: list[tuple[AffinePoint, AffinePoint]]) -> bool:
     """True iff prod e(P_i, Q_i) == 1, with a single final exponentiation.
 
-    The host oracle of the port's device pairing: pure Python, no routing.
-    Points must be in the prime-order subgroups."""
+    The host oracle of the port's device pairing: the native library's
+    lockstep Miller loops, or pure Python when :func:`.native.enabled` is
+    off.  Points must be in the prime-order subgroups."""
     live = []
     for p, q in pairs:
         if p is None or q is None:
@@ -166,6 +171,8 @@ def pairing_check(pairs: list[tuple[AffinePoint, AffinePoint]]) -> bool:
         live.append((p, q))
     if not live:
         return True
+    if native.enabled():
+        return native.pairing_check(live)
     f = F.FQ12_ONE
     for p, q in live:
         f = F.fq12_mul(f, miller_loop(p, q))

@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+"""Build the package's CUDA sources with ``nvcc``, and the repo's native host
+library with ``g++``, and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C interface,
 ``_build/lib<name>-<digest>.so``, where the digest covers the source text and
@@ -10,11 +11,18 @@ when a CUDA tensor first needs a kernel (or when a caller asks for
 
 No PyTorch header is compiled in: a source that includes them takes minutes
 to build, a plain C one seconds.
+
+The host library is ``native/bls381/bls381.cpp``, the repo's shared C++
+BLS12-381 layer, which belongs to neither Python package.  It is compiled
+in place with ``native/Makefile``'s flags into
+``_build/lib<name>-<digest>.so`` (never into ``native/build/``) at first use,
+under a file lock so that concurrent processes build it once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -22,11 +30,18 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOURCE_DIR", "BUILD_DIR", "build_all", "library", "nvcc_path"]
+__all__ = [
+    "BUILD_DIR", "HOST_FLAGS", "HOST_SOURCES", "NVCC_FLAGS", "SOURCE_DIR", "build_all",
+    "build_host", "cxx_path", "library", "nvcc_path",
+]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "_build"
+# host C++ sources of the repo's native layer, by library name
+HOST_SOURCES = {"bls381": _PACKAGE_DIR.parent / "native" / "bls381" / "bls381.cpp"}
+# native/Makefile's flags for libbls381.so
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -95,3 +110,37 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libraries[name] = ctypes.CDLL(str(build_all([name])[name]))
         return lib
+
+
+def cxx_path() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the native host library needs a C++17 compiler")
+    return found
+
+
+def build_host(name: str = "bls381") -> Path:
+    """Path of the host library ``name`` (:data:`HOST_SOURCES`), compiled
+    with ``g++`` and :data:`HOST_FLAGS` if no current build exists.  Raises
+    if the compiler is missing or fails."""
+    src = HOST_SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / f"lib{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():  # another process built it while this one waited
+            return so
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        out = subprocess.run([cxx_path(), *HOST_FLAGS, "-o", str(tmp), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        build_logs[name] = out.stdout
+        if out.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"host build of {src} failed: g++ exited {out.returncode}\n"
+                               f"{out.stdout}")
+        os.replace(tmp, so)
+    return so

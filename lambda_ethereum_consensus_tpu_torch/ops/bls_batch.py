@@ -44,6 +44,8 @@ __all__ = [
     "chain_verify",
     "chain_verify_cached",
     "get_chain_ops",
+    "get_plane_store",
+    "plane_store_stats",
 ]
 
 _QUANTUM = 8
@@ -221,11 +223,18 @@ def make_chain_ops(device: torch.device) -> dict:
 _CHAIN_OPS: dict = {}
 
 
-def get_chain_ops(device: str | torch.device | None = None) -> dict:
-    """The chain's stage functions on ``device`` (default: the card)."""
+def _indexed_device(device) -> torch.device:
+    """``resolve_device`` with the current card's index filled in, so that
+    ``"cuda"`` and ``"cuda:0"`` key one entry."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def get_chain_ops(device: str | torch.device | None = None) -> dict:
+    """The chain's stage functions on ``device`` (default: the card)."""
+    dev = _indexed_device(device)
     if dev not in _CHAIN_OPS:
         _CHAIN_OPS[dev] = make_chain_ops(dev)
     return _CHAIN_OPS[dev]
@@ -457,6 +466,38 @@ class RegistryPlaneStore:
         self.count = n
         self._host_rx, self._host_ry = rx, ry
         return self.rx, self.ry
+
+    @property
+    def resident_bytes(self) -> int:
+        """Device bytes of the two plane buffers (capacity, not count)."""
+        return 0 if self.rx is None else 2 * self.rx.numel() * self.rx.element_size()
+
+
+# one store per (chain, device): genesis_validators_root is the chain
+# identity the host-side planes cache keys on
+_PLANE_STORES: dict = {}
+
+
+def get_plane_store(chain_key: bytes, device: str | torch.device | None = None) -> RegistryPlaneStore:
+    """The per-chain shared :class:`RegistryPlaneStore` on ``device``
+    (default: the card), created on first use."""
+    dev = _indexed_device(device)
+    key = (bytes(chain_key), dev)
+    store = _PLANE_STORES.get(key)
+    if store is None:
+        store = _PLANE_STORES[key] = RegistryPlaneStore(dev)
+    return store
+
+
+def plane_store_stats() -> dict:
+    """Totals over every live plane store: count, device bytes, columns
+    shipped host to device."""
+    stores = list(_PLANE_STORES.values())
+    return {
+        "stores": len(stores),
+        "resident_bytes": sum(s.resident_bytes for s in stores),
+        "uploaded_cols": sum(s.uploaded_cols for s in stores),
+    }
 
 
 class DeviceCommitteeCache:

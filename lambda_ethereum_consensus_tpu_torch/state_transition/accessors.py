@@ -89,9 +89,18 @@ def get_seed(state, epoch: int, domain_type: bytes, spec: ChainSpec | None = Non
 
 # ------------------------------------------------------------ committees
 
+def _active_indices(state, epoch: int):
+    """The active set as the mutable view's numpy array where there is one
+    (no per-index boxing: at a mainnet registry a list costs tens of ms per
+    committee lookup), else :func:`get_active_validator_indices`."""
+    if hasattr(state, "active_indices"):
+        return state.active_indices(epoch)
+    return get_active_validator_indices(state, epoch)
+
+
 def get_committee_count_per_slot(state, epoch: int, spec: ChainSpec | None = None) -> int:
     spec = spec or get_chain_spec()
-    active = len(get_active_validator_indices(state, epoch))
+    active = len(_active_indices(state, epoch))
     return max(
         1,
         min(
@@ -108,7 +117,7 @@ def get_beacon_committee(
     epoch = misc.compute_epoch_at_slot(slot, spec)
     committees_per_slot = get_committee_count_per_slot(state, epoch, spec)
     return misc.compute_committee(
-        get_active_validator_indices(state, epoch),
+        _active_indices(state, epoch),
         get_seed(state, epoch, constants.DOMAIN_BEACON_ATTESTER, spec),
         (slot % spec.SLOTS_PER_EPOCH) * committees_per_slot + index,
         committees_per_slot * spec.SLOTS_PER_EPOCH,
@@ -131,7 +140,7 @@ def get_beacon_proposer_index(
         get_seed(state, epoch, constants.DOMAIN_BEACON_PROPOSER, spec)
         + int(slot).to_bytes(8, "little")
     )
-    indices = get_active_validator_indices(state, epoch)
+    indices = _active_indices(state, epoch)
     if hasattr(state, "registry"):
         ebs = state.registry()["effective_balance"]
     else:

@@ -219,6 +219,8 @@ class BeaconStateMut:
                 value = TrackedList.adopt(value)
             object.__setattr__(self, name, value)
         object.__setattr__(self, "_registry_cache", None)
+        # (registry columns it was derived from, {epoch: active indices})
+        object.__setattr__(self, "_active_memo", None)
         object.__setattr__(self, "_pubkey_index", None)
         # incremental-root engine rides the state lineage (ssz/incremental):
         # process_slot reuses it across slots AND across freeze/thaw cycles
@@ -311,7 +313,17 @@ class BeaconStateMut:
         return np.asarray(getattr(self, f"{which}_epoch_participation"), np.uint8)
 
     def active_indices(self, epoch: int) -> np.ndarray:
-        """Indices active at ``epoch`` (vectorized is_active_validator)."""
+        """Indices active at ``epoch`` (vectorized is_active_validator), a
+        read-only array memoized per epoch for as long as the registry
+        columns it came from (a block asks for it several times per
+        attestation)."""
         reg = self.registry()
-        mask = (reg["activation_epoch"] <= epoch) & (epoch < reg["exit_epoch"])
-        return np.nonzero(mask)[0]
+        if self._active_memo is None or self._active_memo[0] is not reg:
+            self._active_memo = (reg, {})
+        memo = self._active_memo[1]
+        out = memo.get(epoch)
+        if out is None:
+            mask = (reg["activation_epoch"] <= epoch) & (epoch < reg["exit_epoch"])
+            out = memo[epoch] = np.nonzero(mask)[0]
+            out.setflags(write=False)
+        return out

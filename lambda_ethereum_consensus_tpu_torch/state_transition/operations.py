@@ -274,38 +274,87 @@ def process_attestation(
     )
 
 
-def _verify_deferred_attestations(state, deferred, spec, device=None) -> bool:
-    """All of a block's attestation signatures as ONE batched check on the
-    device chain.
+# attesting members from which a block's signatures are checked through the
+# epoch committee cache: the JAX package's BLS_BLOCK_BATCH_MIN_MEMBERS
+# default.  chip_smoke.py times both routes on the card on either side of it
+# (PERF.md); the crossover between them is not measured.
+BLOCK_BATCH_MIN_MEMBERS = 4096
 
-    Signatures decompress per point (:func:`..crypto.bls.curve.
-    g2_from_bytes_batch`); each attestation's aggregate pubkey is summed on
-    the host from the cached pubkey points, and the batch goes to
-    :func:`..crypto.bls.batch.verify_points` on ``device`` (default: the
-    card).  The JAX package sends a batch of at least
-    ``BLS_BLOCK_BATCH_MIN_MEMBERS`` members through the fork-choice
-    committee cache instead; that seam is not ported yet, so here every
-    batch takes ``verify_points``, whatever its size.  Both routes run on
-    the device and give the same verdict, so this is no fallback.  A device
-    error raises.
+
+def _verify_deferred_attestations(state, deferred, spec, device=None) -> bool:
+    """All of a block's attestation signatures as ONE batched check on
+    ``device`` (default: the card).
+
+    Signatures decompress in one pass (:func:`..crypto.bls.curve.
+    g2_from_bytes_batch`, the native thread pool).  A block whose total
+    committee membership reaches :data:`BLOCK_BATCH_MIN_MEMBERS` takes its
+    aggregate pubkeys from the epoch committee cache (full sum minus
+    missing, on the device — the gossip drain's machinery,
+    :func:`..fork_choice.attestation.get_state_attestation_context`); a
+    smaller one sums each attestation's pubkeys on the host and checks the
+    batch through :func:`..crypto.bls.batch.verify_points`.  Both routes run
+    on the device and give the same verdict.  A device error raises.
     """
-    from ..crypto.bls.api import _pubkey_point
     from ..crypto.bls.batch import verify_points
-    from ..crypto.bls.curve import g1, g2_from_bytes_batch
+    from ..crypto.bls.curve import g2_from_bytes_batch
 
     sigs = g2_from_bytes_batch([bytes(ind.signature) for _, ind, _, _ in deferred])
     if any(s is False or s is None for s in sigs):
         return False
+    total_members = sum(len(ind.attesting_indices) for _, ind, _, _ in deferred)
+    if total_members >= BLOCK_BATCH_MIN_MEMBERS:
+        return _verify_deferred_cached(state, deferred, sigs, spec, device)
     entries = []
     for (_att, _ind, pubkeys, signing_root), sig in zip(deferred, sigs):
-        agg = None
-        for pk in pubkeys:
-            pt = _pubkey_point(pk)
-            if pt is None:
-                return False
-            agg = pt if agg is None else g1.affine_add(agg, pt)
+        agg = _sum_points(pubkeys)
+        if agg is None:
+            return False
         entries.append((agg, signing_root, sig))
     return verify_points(entries, device=device)
+
+
+def _sum_points(pubkeys):
+    """Host sum of cached pubkey points; ``None`` if one is the identity."""
+    from ..crypto.bls.api import _pubkey_point
+    from ..crypto.bls.curve import g1
+
+    agg = None
+    for pk in pubkeys:
+        pt = _pubkey_point(pk)
+        if pt is None:
+            return None
+        agg = pt if agg is None else g1.affine_add(agg, pt)
+    return agg
+
+
+def _verify_deferred_cached(state, deferred, sigs, spec, device) -> bool:
+    """The committee-cache route of :func:`_verify_deferred_attestations`:
+    one chained check with no blame (``verify_cached``) per target epoch; an
+    attestation missing more members than the cache corrects (``mmax``) is
+    summed on the host from its participants and checked with
+    ``verify_points``."""
+    from ..crypto.bls.batch import verify_cached, verify_points
+    from ..fork_choice.attestation import get_state_attestation_context
+
+    frozen = state.freeze()
+    by_ctx: dict[int, tuple] = {}
+    host_entries = []
+    for (att, _ind, _pubkeys, signing_root), sig in zip(deferred, sigs):
+        ctx = get_state_attestation_context(frozen, int(att.data.target.epoch), spec, device)
+        cid, attesting, missing = ctx.participation(att)
+        if len(missing) <= ctx.device_cache().mmax:
+            by_ctx.setdefault(id(ctx), (ctx, []))[1].append(
+                (cid, missing.tolist(), signing_root, sig)
+            )
+        else:
+            agg = _sum_points([bytes(frozen.validators[v].pubkey) for v in attesting])
+            if agg is None:
+                return False
+            host_entries.append((agg, signing_root, sig))
+    for ctx, entries in by_ctx.values():
+        if not verify_cached(ctx.device_cache(), entries, message_points=ctx.message_points):
+            return False
+    return not host_entries or verify_points(host_entries, device=device)
 
 
 # --------------------------------------------------------------- deposits

@@ -3,7 +3,8 @@
 A fresh interpreter sets ``sys.modules["jax"]`` (and ``jaxlib``) and
 ``sys.modules["lambda_ethereum_consensus_tpu"]`` to ``None``, so any import of
 them raises, then imports every module under
-``lambda_ethereum_consensus_tpu_torch``.
+``lambda_ethereum_consensus_tpu_torch`` — without building or loading the
+native host library, which happens at first use.
 """
 
 import subprocess
@@ -20,6 +21,8 @@ import lambda_ethereum_consensus_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+from lambda_ethereum_consensus_tpu_torch.crypto.bls import native
+assert native._loaded is None, "importing loaded the native library"
 print("\\n".join(names))
 """
 
@@ -32,7 +35,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     names = set(out.stdout.split())
     prefix = "lambda_ethereum_consensus_tpu_torch."
     for module in (
-        "crypto.bls.api", "crypto.bls.batch", "da.kzg", "ops.bls_batch", "ops.rlc",
+        "crypto.bls.api", "crypto.bls.batch", "crypto.bls.native", "da.kzg",
+        "fork_choice", "fork_choice.attestation", "fork_choice.handlers", "fork_choice.head",
+        "fork_choice.store", "fork_choice.tree", "ops.bls_batch", "ops.rlc",
         "ops.bls_g1", "ops.bls_g2", "ops.bls_pairing", "ops.bls_sign", "ops.sha256",
         "ssz.core", "ssz.incremental", "types.beacon",
         "state_transition.accessors", "state_transition.core", "state_transition.epoch",
