@@ -54,6 +54,23 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    drain's host-sum routes; both block routes (``verify_points`` over host
    sums, the committee cache's one chained check) timed on phase 3b's
    block and on this one;
+3d. the stateless witness plane at phase 3b's walk-end state: a
+   ``WitnessService`` whose own engine roots the state cold on the device
+   backend (== phase 3b's root), 2,048 seeded requests (1,024 x 1, 768 x 4
+   and 256 x 16 indices over balances, validators, inactivity scores and
+   both participation columns) proved, a repeat answered from its proof
+   cache; ``verify_batch`` of the 2,048 on the card cold, warm and profiled
+   (one plane, SHA-256 launches == its rounds, every verdict True and ==
+   the host plane, a 64-proof sample == ``verify_host``, host seconds
+   split into planning, assembly and plane), of 4,096 (two planes), of the
+   six adversaries each in a batch of 64 (== ``verify_host``), of a
+   4-proof request (the oracle route, no launch), and 32 threads x 8
+   requests through the ``VerifyCoalescer`` with one proof corrupted (==
+   the oracle, flushes by trigger); the vector commitment: ``generators(256)`` timed, a
+   width-256 commitment and its opening at 16 indices on the card (== the
+   host Jacobian sums), and a fold of 64 openings made on the host,
+   verified on the card as one MSM of at most 384 lanes, True and, with
+   one value tampered, False;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -83,8 +100,8 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    the per-term host MSM, the 6-blob fold ``True``, and with one proof swapped
    the fold ``False`` and ``verify_blob_proof`` blaming exactly that blob;
 9. the field kernels at the lane counts the drain, a sign flush, a KZG
-   MSM, the block import, the fork-choice drain and the mainnet block
-   import launch them with (launch-weighted median and 90th percentile): each
+   MSM, the block import, the fork-choice drain, the mainnet block
+   import and the vector-commitment fold launch them with (launch-weighted median and 90th percentile): each
    against its plain version there, bit for bit, with a full and a
    broadcast (32, 1) right operand, then timed beside an empty kernel
    launched with the same grid (what a bare launch costs);
@@ -93,14 +110,16 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    ``sub_mod`` at 1, 2 and 4 threads per element in 64- and 128-thread
    blocks, each held and timed from 2,048 lanes to 2^20, which sets
    ``SUB_GROUP`` and its block size; and the SHA-256 kernel at the median
-   and 90th-percentile node counts of a root's launches, held against its
-   plain version and timed beside a bare launch and its bound;
+   and 90th-percentile node counts of a root's launches and of the witness
+   plane's, held against its plain version and timed beside a bare launch
+   and its bound;
 10. one JSON line of per-kernel numbers, then the device line last.
 
 Every path of phases 3-8 is driven with the kernels' launch counts set to 0
 just before it and read just after; a path that launched a kernel of its
 own no time fails the run (the block imports of phases 3b and 3c need both
-the SHA-256 kernel and the three field kernels).  Needs one card, ``nvcc``,
+the SHA-256 kernel and the three field kernels; phase 3d's planes the
+SHA-256 kernel, its vector commitment the three field kernels).  Needs one card, ``nvcc``,
 ``cuobjdump`` and ``g++``; exits nonzero without a card.  Longer records
 land in ``chiprun_out/chip_smoke.json``.
 """
@@ -116,6 +135,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
@@ -164,6 +184,18 @@ ATT_COMMITTEES = 8
 # ORACLE_SAMPLE aggregates against the host oracle
 REGISTRY_KEYS, DISTINCT_KEYS = 16_384, 65_536
 BLOCK_SLOTS, DRAIN_COPIES, SECOND_DRAIN, ORACLE_SAMPLE = 2, 2, 512, 64
+# the witness plane (phase 3d): (requests, indices each), every request over
+# one of WITNESS_FIELDS — 2,048 proofs, one plane of 2,048 x 1,024 padded
+# slots (2^21, the footprint guard); WITNESS_SAMPLE of them against the
+# per-proof oracle; a coalescer of COALESCE_THREADS threads x
+# COALESCE_REQUESTS requests of 1-4 proofs; a width-256 vector commitment
+# opened at VC_OPENED indices and a fold of VC_FOLD openings of VC_FOLD_WIDTH
+# indices each (one MSM of at most 2 x 64 + 256 = 384 lanes)
+WITNESS_SHAPES = ((1024, 1), (768, 4), (256, 16))
+WITNESS_FIELDS = ("balances", "validators", "inactivity_scores",
+                  "previous_epoch_participation", "current_epoch_participation")
+WITNESS_SAMPLE, COALESCE_THREADS, COALESCE_REQUESTS = 64, 32, 8
+VC_OPENED, VC_FOLD, VC_FOLD_WIDTH = 16, 64, 4
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -858,7 +890,8 @@ def transition_phase(dev, rng, record: dict, state, spec):
     profiled) on the walk's end state under an engine that has rooted only
     that state, its post-state rooted again through hashlib, and a copy with
     one attestation signature swapped is rejected.  Returns the import as a
-    path for phase 9, the keyed start state and its keys for phase 3c."""
+    path for phase 9, the keyed start state and its keys for phase 3c, and
+    the card walk's end state and root for phase 3d."""
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
     from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
     from lambda_ethereum_consensus_tpu_torch.ssz import HashlibBackend, set_hash_backend
@@ -1059,7 +1092,8 @@ def transition_phase(dev, rng, record: dict, state, spec):
             set_hash_backend(prev)
 
     return dict(import_path=import_path, start=start, start_sks=start_sks, sync_keys=sync_keys,
-                block_set=block_set[0])
+                block_set=block_set[0], walk_end=walks["card"]["end"],
+                walk_root=walks["card"]["final_root"])
 
 
 def _epoch_committees(ws, epoch: int, spec) -> tuple[int, dict]:
@@ -1548,6 +1582,346 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
 
     return {"fork-choice drain": drain_path, "mainnet block import": import_path}
 
+class _MetricCounts:
+    """A metrics sink for the witness modules: counts each ``inc`` by name
+    and labels, and each ``observe`` as ``<name>_count``."""
+
+    def __init__(self):
+        self.counts = Counter()
+        self._lock = threading.Lock()
+
+    def inc(self, name, value=1, **labels):
+        with self._lock:
+            self.counts[(name, tuple(sorted(labels.items())))] += value
+
+    def observe(self, name, value, **labels):
+        self.inc(name + "_count")
+
+    def set_gauge(self, name, value, **labels):
+        pass
+
+    def get(self, name, **labels) -> int:
+        return self.counts[(name, tuple(sorted(labels.items())))]
+
+
+def _witness_requests(rng, n: int) -> list:
+    """WITNESS_SHAPES' requests in a seeded order, each over one witness
+    field at seeded indices below ``n``."""
+    out = []
+    for count, width in WITNESS_SHAPES:
+        for k in rng.integers(0, len(WITNESS_FIELDS), count):
+            out.append([(WITNESS_FIELDS[int(k)], int(i)) for i in rng.integers(0, n, width)])
+    return [out[i] for i in rng.permutation(len(out))]
+
+
+def _corrupted(proof):
+    from lambda_ethereum_consensus_tpu_torch.witness.multiproof import WitnessProof
+
+    return WitnessProof(proof.state_root, proof.indices, proof.leaves,
+                        (b"\x5a" * 32,) + tuple(proof.siblings[1:]))
+
+
+def _witness_adversaries(proof) -> list:
+    """The six rejection cases of ``tests/unit/test_witness.py``:
+    (name, proof, expected root or None for the proof's own)."""
+    from lambda_ethereum_consensus_tpu_torch.witness.multiproof import WitnessProof
+
+    g, chunk = proof.leaves[0]
+    root, idx, leaves, sibs = proof.state_root, proof.indices, proof.leaves, proof.siblings
+    return [
+        ("corrupted sibling", _corrupted(proof), None),
+        ("truncated proof", WitnessProof(root, idx, leaves, sibs[:-1]), None),
+        ("padded proof", WitnessProof(root, idx, leaves, sibs + (b"\x00" * 32,)), None),
+        ("duplicated gindex", WitnessProof(root, idx, ((g, chunk), (g, chunk)) + leaves[1:],
+                                           sibs), None),
+        ("empty index set", WitnessProof(root, (), (), sibs), None),
+        ("wrong root", proof, b"\x13" * 32),
+    ]
+
+
+def witness_phase(dev, rng, record: dict, state, root: bytes, spec) -> tuple[dict, Counter]:
+    """Phase 3d: the stateless witness plane at phase 3b's walk-end state,
+    whose root phase 3b held equal to the host walk's.
+
+    A ``WitnessService`` with its own engine on the device backend roots
+    the state cold (== ``root``), proves the seeded requests and answers a
+    repeat from its proof cache; ``verify_batch`` checks the 2,048 proofs
+    on the card cold, warm and profiled (one plane, one SHA-256 launch per
+    round; == the host plane and a sample == the per-proof oracle; host
+    seconds split into planning, assembly and plane), then 4,096 (two
+    planes), the six adversaries each in a batch of 64, a 4-proof request
+    on the oracle route (no launch), and the coalescer under concurrent
+    requests; then
+    the vector commitment: generators, a width-256 commitment and an
+    opening on the card (== the host Jacobian sums), and a fold of
+    VC_FOLD openings made on the host, True and, tampered, False on the
+    card.  Returns phase 9's "VC fold" path and the node counts of every
+    SHA-256 launch of the plane."""
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.witness import coalesce
+    from lambda_ethereum_consensus_tpu_torch.witness import multiproof as mp
+    from lambda_ethereum_consensus_tpu_torch.witness import vector_commitment as VC
+    from lambda_ethereum_consensus_tpu_torch.witness import verify as V
+    from lambda_ethereum_consensus_tpu_torch.witness.service import WitnessService
+
+    _reset_peak()
+    t_phase = time.perf_counter()
+    n = len(state.validators)
+    out: dict = {}
+
+    # ---- the service's own engine roots the state cold on the device backend
+    svc_metrics = _MetricCounts()
+    svc = WitnessService(backend=sops.DeviceHashBackend(dev), metrics=svc_metrics)
+    planner, _lock = svc.planner(root)
+    sops.sha256_kernel_launches = 0
+    _sync()
+    t0 = time.perf_counter()
+    cold_root = planner.root(state, spec)
+    _sync()
+    out["cold_root_s"] = time.perf_counter() - t0
+    out["cold_root_sha256_launches"] = sops.sha256_kernel_launches
+    if cold_root != root:
+        raise AssertionError(f"the service's engine root {cold_root.hex()} != phase 3b's "
+                             f"{root.hex()}")
+    if not out["cold_root_sha256_launches"]:
+        raise AssertionError("the service's cold root launched no SHA-256 kernel")
+    out["retained_mib"] = planner.engine.retained_bytes() / 2**20
+    print(f"witness service: cold engine root {out['cold_root_s']:.3f} s on the device backend, "
+          f"{out['cold_root_sha256_launches']} SHA-256 launches, == phase 3b's root; "
+          f"{out['retained_mib']:.1f} MiB of retained rows")
+
+    # ---- the seeded requests proved, one answered again from the proof cache
+    requests = _witness_requests(rng, n)
+    t0 = time.perf_counter()
+    proofs = [svc.prove(root, state, req, spec) for req in requests]
+    out["prove_s"] = time.perf_counter() - t0
+    hits = svc_metrics.get("serve_cache_hit_total", cache="witness_proof", kind="proof")
+    t0 = time.perf_counter()
+    again = svc.prove(root, state, requests[-1], spec)
+    out["cached_prove_s"] = time.perf_counter() - t0
+    if again is not proofs[-1] or svc_metrics.get("serve_cache_hit_total", cache="witness_proof",
+                                                  kind="proof") != hits + 1:
+        raise AssertionError("the repeated request missed the proof cache")
+    t0 = time.perf_counter()
+    plans = [mp.plan_for(p) for p in proofs]  # what verify_batch pays: 2,048 distinct leaf sets
+    out["plan_s"] = time.perf_counter() - t0
+    shapes = {}
+    for req, plan in zip(requests, plans):
+        row = shapes.setdefault(len(req), dict(proofs=0, max_slots=0, max_rounds=0))
+        row["proofs"] += 1
+        row["max_slots"] = max(row["max_slots"], plan.n_slots)
+        row["max_rounds"] = max(row["max_rounds"], len(plan.rounds))
+    out["shapes"] = shapes
+    rounds = max(len(p.rounds) for p in plans)
+    planes, oracle = V.split_planes(list(range(len(proofs))), plans)
+    if [len(p) for p in planes] != [len(proofs)] or oracle:
+        raise AssertionError(f"{len(proofs)} proofs made planes {[len(p) for p in planes]}, "
+                             f"{len(oracle)} to the oracle")
+    print(f"{len(proofs)} proofs in {out['prove_s']:.3f} s ({len(proofs) / out['prove_s']:.0f} "
+          f"a second); the repeat from the proof cache in {out['cached_prove_s'] * 1e6:.1f} us; "
+          f"by width {shapes}; one plane of {len(proofs)} x "
+          f"{V._pow2(max(p.n_slots for p in plans))} slots, {rounds} rounds")
+
+    with _recording(V, "sha256_nodes", lambda blocks: int(blocks.shape[0])) as plane_nodes:
+        # ---- the 2,048 on the card: cold, warm, the host split, a profile
+        for tag in ("cold", "warm"):
+            sops.sha256_kernel_launches = 0
+            _sync()
+            t0 = time.perf_counter()
+            got = V.verify_batch(proofs, root, device=dev)
+            _sync()
+            out[f"verify_{tag}_s"] = time.perf_counter() - t0
+            if got != [True] * len(proofs):
+                raise AssertionError(f"{got.count(False)} of the {len(proofs)} valid proofs "
+                                     f"rejected ({tag})")
+            if sops.sha256_kernel_launches != rounds:
+                raise AssertionError(f"{sops.sha256_kernel_launches} SHA-256 launches for a "
+                                     f"plane of {rounds} rounds")
+        out["verify_sha256_launches"] = rounds
+        _sync()
+        t0 = time.perf_counter()
+        packed = V._assemble(proofs, [root] * len(proofs), plans)
+        t1 = time.perf_counter()
+        plane = V._verify_plane(packed, dev)
+        t2 = time.perf_counter()
+        host_plane = V._verify_plane_host(packed)
+        t3 = time.perf_counter()
+        out.update(assembly_s=t1 - t0, plane_s=t2 - t1, host_plane_s=t3 - t2,
+                   plane_bytes=int(packed["nodes"].nbytes))
+        if plane.tolist() != host_plane.tolist() or not host_plane.all():
+            raise AssertionError("the plane on the card != the host plane")
+        sample = [int(i) for i in rng.choice(len(proofs), WITNESS_SAMPLE, replace=False)]
+        if not all(mp.verify_host(proofs[i], root) for i in sample):
+            raise AssertionError("the per-proof oracle rejected a sampled proof")
+        wall, busy = _profiled(lambda: V.verify_batch(proofs, root, device=dev))
+        out.update(profiled_s=wall, device_busy_ms=busy, idle_share=1 - busy / 1e3 / wall)
+        print(f"verify_batch of {len(proofs)} on the card: cold {out['verify_cold_s']:.3f} s, "
+              f"warm {out['verify_warm_s']:.3f} s, {rounds} SHA-256 launches (== the plane's "
+              f"rounds); every verdict True, == _verify_plane_host "
+              f"({out['host_plane_s']:.3f} s on the host), a {WITNESS_SAMPLE}-proof sample == "
+              f"verify_host")
+        print(f"host split: planning {out['plan_s']:.3f} s, assembly {out['assembly_s']:.3f} s, "
+              f"plane {out['plane_s']:.3f} s "
+              f"({out['plane_bytes'] / 2**20:.0f} MiB of nodes up, launches, verdicts back); "
+              + _idle_line("verify_batch", wall, busy))
+
+        # ---- 4,096 proofs: two planes
+        more = [svc.prove(root, state, req, spec) for req in _witness_requests(rng, n)]
+        both = proofs + more
+        both_plans = plans + [mp.plan_for(p) for p in more]
+        planes, oracle = V.split_planes(list(range(len(both))), both_plans)
+        if len(planes) != 2 or oracle:
+            raise AssertionError(f"{len(both)} proofs made {len(planes)} planes")
+        want_launches = sum(max(len(both_plans[i].rounds) for i in p) for p in planes)
+        seen = []
+        real_plane = V._verify_plane
+        V._verify_plane = lambda packed, device: seen.append(packed["n"]) or real_plane(packed,
+                                                                                      device)
+        try:
+            sops.sha256_kernel_launches = 0
+            _sync()
+            t0 = time.perf_counter()
+            got = V.verify_batch(both, root, device=dev)
+            _sync()
+            out["verify_4096_s"] = time.perf_counter() - t0
+        finally:
+            V._verify_plane = real_plane
+        if got != [True] * len(both) or seen != [len(p) for p in planes] or \
+                sops.sha256_kernel_launches != want_launches:
+            raise AssertionError(f"{len(both)} proofs: {got.count(False)} rejected, planes "
+                                 f"{seen}, {sops.sha256_kernel_launches} launches for "
+                                 f"{want_launches} rounds")
+        if not all(mp.verify_host(more[i], root) for i in sample):
+            raise AssertionError("the per-proof oracle rejected a sampled proof")
+        out["verify_4096_launches"] = want_launches
+        print(f"verify_batch of {len(both)}: {out['verify_4096_s']:.3f} s in planes of {seen}, "
+              f"{want_launches} SHA-256 launches, every verdict True")
+
+        # ---- the six adversaries, each in a batch of 64 among valid proofs
+        base = next(p for p, req in zip(proofs, requests) if len(req) == 4)
+        valid = proofs[:63]
+        out["adversaries"] = {}
+        for name, bad, override in _witness_adversaries(base):
+            batch = valid[:31] + [bad] + valid[31:]
+            roots = [root] * 31 + [override or root] + [root] * 32
+            sops.sha256_kernel_launches = 0
+            got = V.verify_batch(batch, roots, device=dev)
+            want = [mp.verify_host(p, r) for p, r in zip(batch, roots)]
+            if got != want or got[31] or got.count(False) != 1 or not sops.sha256_kernel_launches:
+                raise AssertionError(f"{name}: verdicts differ from verify_host or the plane did "
+                                     f"not run ({sops.sha256_kernel_launches} launches)")
+            out["adversaries"][name] = sops.sha256_kernel_launches
+        print(f"the six adversaries, each in a batch of 64: every verdict == verify_host, only the "
+              f"adversary False; SHA-256 launches {out['adversaries']}")
+
+        # ---- a 4-proof request takes the oracle route
+        sops.sha256_kernel_launches = 0
+        if V.verify_batch(proofs[:4], root, device=dev) != [True] * 4 or \
+                sops.sha256_kernel_launches:
+            raise AssertionError("a 4-proof request did not take the oracle route")
+        print(f"a 4-proof request (under DEVICE_MIN = {V.DEVICE_MIN}): the oracle route, 0 SHA-256 "
+              f"launches")
+
+        # ---- the coalescer under concurrent requests, one proof corrupted
+        co_metrics = _MetricCounts()
+        co = coalesce.VerifyCoalescer(metrics=co_metrics)
+        bad_at = (int(rng.integers(COALESCE_THREADS)), int(rng.integers(COALESCE_REQUESTS)))
+        batches = {}
+        for t in range(COALESCE_THREADS):
+            for r in range(COALESCE_REQUESTS):
+                picks = rng.choice(len(proofs), int(rng.integers(1, 5)), replace=False)
+                batch = [proofs[int(i)] for i in picks]
+                if (t, r) == bad_at:
+                    batch[-1] = _corrupted(batch[-1])
+                batches[(t, r)] = batch
+        results, errors = {}, []
+
+        def client(t):
+            try:
+                for r in range(COALESCE_REQUESTS):
+                    batch = batches[(t, r)]
+                    results[(t, r)] = co.verify(batch, [root] * len(batch), device=dev)
+            except Exception as e:  # noqa: BLE001 - reported and failed below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(COALESCE_THREADS)]
+        sops.sha256_kernel_launches = 0
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        out["coalesce_s"] = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        for key, batch in batches.items():
+            want = [mp.verify_host(p, root) for p in batch]
+            if results[key] != want or want.count(False) != (key == bad_at):
+                raise AssertionError(f"coalesced request {key}: {results[key]} != oracle {want}")
+        flushes = {trig: co_metrics.get("serve_coalesce_flush_total", trigger=trig)
+                   for trig in ("target", "deadline")}
+        out.update(coalesce_flushes=flushes, coalesce_sha256_launches=sops.sha256_kernel_launches,
+                   coalesce_proofs=sum(len(b) for b in batches.values()))
+        if not sops.sha256_kernel_launches:
+            raise AssertionError("the coalescer's flushes launched no SHA-256 kernel")
+        print(f"coalescer: {COALESCE_THREADS} threads x {COALESCE_REQUESTS} requests "
+              f"({out['coalesce_proofs']} proofs) in {out['coalesce_s']:.3f} s; flushes by "
+              f"trigger {flushes}; {sops.sha256_kernel_launches} SHA-256 launches; every "
+              f"request == the oracle, only the corrupted proof False")
+    out["plane_nodes"] = dict(sorted(plane_nodes.items()))
+
+    # ---- the vector commitment
+    t0 = time.perf_counter()
+    VC.generators(VC.WIDTH)
+    out["generators_s"] = time.perf_counter() - t0
+    values = [int.from_bytes(rng.bytes(31), "big") for _ in range(VC.WIDTH)]
+    commitment, out["vc_commit_s"], out["vc_commit_launches"] = _counted(
+        lambda: VC.commit(values, device=dev), "VC commit")
+    if commitment != VC.commit(values, host=True):
+        raise AssertionError("the card's commitment != the host Jacobian sum")
+    opened = sorted(int(i) for i in rng.choice(VC.WIDTH, VC_OPENED, replace=False))
+    opening, out["vc_open_s"], out["vc_open_launches"] = _counted(
+        lambda: VC.open_indices(values, opened, device=dev), "VC open")
+    host_opening = VC.open_indices(values, opened, host=True)
+    if (opening.indices, opening.values, opening.rest) != \
+            (host_opening.indices, host_opening.values, host_opening.rest):
+        raise AssertionError("the card's opening != the host Jacobian sums")
+    t0 = time.perf_counter()
+    vecs = [[int.from_bytes(rng.bytes(31), "big") for _ in range(VC.WIDTH)]
+            for _ in range(VC_FOLD)]
+    commitments = [VC.commit(v, host=True) for v in vecs]
+    openings = [VC.open_indices(v, [int(i) for i in rng.choice(VC.WIDTH, VC_FOLD_WIDTH,
+                                                                replace=False)], host=True)
+                for v in vecs]
+    out["vc_fold_host_s"] = time.perf_counter() - t0
+    with _recording(VC, "batch_g1_mul", lambda points, *rest: len(points)) as msm_lanes:
+        ok, out["vc_fold_s"], out["vc_fold_launches"] = _counted(
+            lambda: VC.verify_openings(commitments, openings, device=dev), "VC fold")
+    bad, j = list(openings), VC_FOLD // 2
+    bad[j] = VC.VcOpening(bad[j].indices, (bad[j].values[0] + 1,) + bad[j].values[1:],
+                          bad[j].rest)
+    tampered, out["vc_tampered_s"], _ = _counted(
+        lambda: VC.verify_openings(commitments, bad, device=dev), "VC fold, tampered")
+    lanes = sorted(msm_lanes.elements())
+    if ok is not True or tampered is not False or len(lanes) != 1 or lanes[0] > 2 * VC_FOLD + VC.WIDTH:
+        raise AssertionError(f"VC fold {ok}, tampered {tampered}, MSM lanes {lanes}")
+    if VC.verify_openings(commitments, openings, host=True) is not True:
+        raise AssertionError("the host fold rejected the openings")
+    out["vc_fold_lanes"] = lanes[0]
+    print(f"vector commitment: generators({VC.WIDTH}) {out['generators_s']:.3f} s; width-{VC.WIDTH} "
+          f"commitment on the card {out['vc_commit_s']:.3f} s ({_total(out['vc_commit_launches'])} "
+          f"field launches), opening at {VC_OPENED} indices {out['vc_open_s']:.3f} s, both == the "
+          f"host Jacobian sums; {VC_FOLD} openings made on the host in "
+          f"{out['vc_fold_host_s']:.3f} s, their fold one MSM of {lanes[0]} lanes on the card: "
+          f"True in {out['vc_fold_s']:.3f} s ({_total(out['vc_fold_launches'])} field launches "
+          f"{out['vc_fold_launches']}), tampered False in {out['vc_tampered_s']:.3f} s")
+
+    out.update(peak_mib=_peak_mib(), seconds=time.perf_counter() - t_phase)
+    print(f"peak device memory in the witness phase {out['peak_mib']:.0f} MiB")
+    record["witness"] = out
+    return ({"VC fold": lambda: VC.verify_openings(commitments, openings, device=dev)},
+            plane_nodes)
+
 
 def sign_phase(dev, rng, record: dict) -> dict:
     """Phase 5: a duty flush of SIGNERS signatures over DUTY_MESSAGES
@@ -1990,9 +2364,11 @@ def body_sweep(dev, rng, name: str, sizes: tuple, bodies: dict) -> tuple[int, di
     return max_err, rows
 
 
-def sha256_root_shapes(dev, hist: Counter, opcodes: Counter, clock_mhz: float) -> dict:
+def sha256_path_shapes(dev, hist: Counter, opcodes: Counter, clock_mhz: float,
+                       label: str) -> dict:
     """Phase 9: the SHA-256 kernel at the launch-weighted median and 90th
-    percentile of the node counts one state root launches it with, held
+    percentile of the node counts ``hist`` of a path's launches (one state
+    root's, the witness plane's), held
     against its plain version there, timed (profiler device time per
     launch) beside a bare launch of the same grid (the field library's
     empty kernel on 256-thread blocks, the SHA-256 launcher's) and the
@@ -2009,7 +2385,8 @@ def sha256_root_shapes(dev, hist: Counter, opcodes: Counter, clock_mhz: float) -
         n = _weighted_quantile(hist, q)
         blocks = torch.randint(0, 256, (n, 64), dtype=torch.uint8, device=dev)
         if not torch.equal(sops.sha256_nodes(blocks), sops.hash_blocks_torch(blocks)):
-            raise AssertionError(f"sha256 kernel != plain version at the root's {tag} ({n} nodes)")
+            raise AssertionError(f"sha256 kernel != plain version at {label}'s {tag} "
+                                 f"({n} nodes)")
         device_us, _ = _device_us(lambda: sops.sha256_nodes(blocks), 200, "sha256_nodes")
         geometry = (1, 256, -(-n // 256))
         bare_us, _ = _device_us(lambda: BP._run("empty", zero, zero, (32, n), geometry), 200,
@@ -2019,7 +2396,7 @@ def sha256_root_shapes(dev, hist: Counter, opcodes: Counter, clock_mhz: float) -
         row[tag] = dict(lanes=n, device_us=device_us, bare_launch_us=bare_us,
                         bound_us=max(byte_us, op_us),
                         bound_by="operations" if op_us >= byte_us else "bytes")
-    print(f"sha256 at the state root's shapes: {row['launches']} launches; " + "; ".join(
+    print(f"sha256 at {label}'s shapes: {row['launches']} launches; " + "; ".join(
         f"{tag} {r['lanes']} nodes: device {r['device_us']:.3f} us per launch, bare launch "
         f"{r['bare_launch_us']:.3f} us, bound {r['bound_us']:.4f} us ({r['bound_by']})"
         for tag, r in ((t, row[t]) for t in ("p50", "p90"))) + " (== plain version at both)")
@@ -2187,6 +2564,12 @@ def main() -> int:
     print(f"node phase {time.perf_counter() - t0:.1f} s")
     del transition["start"], key_points, compressed
 
+    # ---- phase 3d: the witness plane, at phase 3b's walk-end state
+    t0 = time.perf_counter()
+    witness_paths, witness_nodes = witness_phase(dev, rng, record, transition.pop("walk_end"),
+                                                 transition.pop("walk_root"), spec)
+    print(f"witness phase {time.perf_counter() - t0:.1f} s")
+
     # ---- phase 4: the signature leg — the attestation drain on the card
     t0 = time.perf_counter()
     fq_launches, drain = bls_phase(dev, rng, record)
@@ -2217,6 +2600,7 @@ def main() -> int:
         "KZG MSM": lambda: K.blob_to_commitment(blob, setup, device=dev),
         "block import": transition["import_path"],
         **node_paths,
+        **witness_paths,
     }
     path_err, record["path_shapes"] = path_shape_timings(dev, rng, paths)
     mul_err, record["mul_body_sweep"] = body_sweep(
@@ -2228,7 +2612,10 @@ def main() -> int:
         dev, rng, "sub_mod", SUB_SWEEP, {f"g{g} t{t}": (g, t) for g, t in SUB_BODIES})
     print(f"SUB_GROUP {BP.SUB_GROUP}, {BP.BLOCK_THREADS['sub_mod']}-thread blocks")
     fq_err = max(fq_err, path_err, mul_err, sub_err)
-    record["sha256_root_shapes"] = sha256_root_shapes(dev, sha_lanes, opcodes, clock_mhz)
+    record["sha256_root_shapes"] = sha256_path_shapes(dev, sha_lanes, opcodes, clock_mhz,
+                                                      "the state root")
+    record["sha256_witness_shapes"] = sha256_path_shapes(dev, witness_nodes, opcodes, clock_mhz,
+                                                         "the witness plane")
 
     # ---- phase 10: per-kernel numbers, then the device line
     big_n = TIMED_SIZES[-1]
@@ -2267,7 +2654,7 @@ def main() -> int:
         })
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - T_START
-    print(f"chip smoke {record['seconds']:.1f} s")
+    print(f"chip smoke {record['seconds']:.1f} s on {card}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1) + "\n")

@@ -3,7 +3,8 @@
 For this system the chain state plays the part that weights play for a
 model: the port takes the JAX package's state, and the blocks it minted, as
 their canonical SSZ encodings (``.encode(spec)`` there) and decodes them
-into its own containers.
+into its own containers; a witness multiproof crosses as its compact
+``encode()`` bytes.
 Device-side BLS state — registry pubkey planes, committee sums, Fq12 Miller
 outputs — crosses as numpy limb planes, ``(32, ...)`` int32 with 12-bit
 canonical limbs, the layout both packages share.  No object of the JAX
@@ -26,6 +27,7 @@ __all__ = [
     "planes_from_torch",
     "planes_to_torch",
     "state_from_ssz",
+    "witness_proof_from_ssz",
 ]
 
 
@@ -45,6 +47,14 @@ def state_from_ssz(data: bytes, spec: ChainSpec | None = None) -> types.BeaconSt
 def block_from_ssz(data: bytes, spec: ChainSpec | None = None) -> types.SignedBeaconBlock:
     """The port's ``SignedBeaconBlock`` from its SSZ bytes."""
     return types.SignedBeaconBlock.decode(data, spec)
+
+
+def witness_proof_from_ssz(data: bytes):
+    """The port's ``WitnessProof`` from a proof's ``encode()`` bytes; raises
+    ``WitnessError`` on a truncated or malformed encoding."""
+    from .witness.multiproof import WitnessProof
+
+    return WitnessProof.decode(data)
 
 
 def planes_to_torch(planes, device: str | torch.device | None = None) -> torch.Tensor:
