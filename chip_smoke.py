@@ -30,8 +30,11 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    then the same walk on the host path (hashlib, host epoch), every slot's
    root equal; a block for the next slot minted by ``duties`` with a live
    sync aggregate and the 8 committees' aggregate attestations, imported
-   with ``validate_result=True`` (SHA-256 and field launches counted, then
-   profiled), and a copy with one attestation signature swapped rejected;
+   with ``validate_result=True`` and its signature set on the device chain
+   (the set gate at 0; SHA-256 and field launches counted, then profiled),
+   a copy with one attestation signature swapped rejected, and the block
+   imported again on its default route (field launches as the constants
+   pick);
    then the engine's full-field rebuild at 2^8 to 2^20 chunks through
    hashlib and through the device backend;
 3c. the node's slot through the port's fork choice at that registry:
@@ -46,14 +49,15 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    rooted again through hashlib, a copy with one signature swapped
    rejected; ``on_attestation_batch`` of two aggregates per committee from
    the block's slot to the epoch's end (3,840, one at 50 % over ``mmax``),
-   cold, warm and profiled, every verdict None, the latest messages exactly
-   the participants' votes and ``get_head`` the block; a second drain of
-   512 fresh aggregates blaming exactly its forged one (``reject=True``);
-   64 aggregates against the host oracle (native ``rlc_verify``); the
-   aggregates over ``mmax`` counted through the block's and the cold
-   drain's host-sum routes; both block routes (``verify_points`` over host
-   sums, the committee cache's one chained check) timed on phase 3b's
-   block and on this one;
+   cold, warm and profiled on the cached body with its sparse entries on
+   the device chain (the set gate at 0), every verdict None, the latest
+   messages exactly the participants' votes and ``get_head`` the block; a
+   second drain of 512 fresh aggregates blaming exactly its forged one
+   (``reject=True``) on the cached body, its default route; 64 aggregates
+   against the host oracle (native ``rlc_verify``); the aggregates over
+   ``mmax`` counted through the block's and the cold drain's host-sum
+   routes, the drain's checked again alone on the device chain and on their
+   default route;
 3d. the stateless witness plane at phase 3b's walk-end state: a
    ``WitnessService`` whose own engine roots the state cold on the device
    backend (== phase 3b's root), 2,048 seeded requests (1,024 x 1, 768 x 4
@@ -87,8 +91,23 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
 6. signature sets: ``verify_points`` over those 1,024 entries, ``batch_verify``
    over their bytes, bisection blame of one swapped signature through
    ``batch_verify_each_points``, a ``None`` point, one entry (a block's
-   proposer signature) cold, warm and on the host, and the 1,024 entries on
-   the host tail (native ``rlc_verify``);
+   proposer signature) cold, warm and on the host, all on the device chain
+   (the set gate at 0), and the 1,024 entries on the host tail (native
+   ``rlc_verify``); then each of those calls once more on its default
+   route, whose launches must be what ``DEVICE_CHAIN_MIN`` picks;
+6b. the size routes, each route forced through its constant and timed warm
+   (median of 3), every route's verdicts equal, each row printed beside the
+   card's name and power limit: a set through ``verify_points`` on the
+   device chain and on the host tail at 16,384 down to 1 entries (tiled
+   from phase 6's entries); ``on_attestation_batch`` of the first 1 to
+   1,024 of phase 3c's drain, re-submitted to its store, through the cached
+   and the host body (every verdict None, the latest messages unchanged),
+   and the cached body cold at 64; ``_verify_deferred_attestations`` over
+   the first 8 to 128 aggregates of phase 3c's block through its three
+   routes.  A route that loses along its sweep (the card on the set, the
+   host on the drain and the block) stops once another route has been at
+   least as fast at two sizes in a row, and the sweep ends with it.  The
+   crossovers are printed beside the constants;
 7. batch scalar multiplication: the mainnet KZG dev setup (4,096 host scalar
    multiplications, timed), ``batch_g1_mul`` on its 4,096 points with 255-bit
    scalars, ``batch_g2_mul`` on 1,024 points with 64-bit scalars (``k = 0``
@@ -119,7 +138,9 @@ Every path of phases 3-8 is driven with the kernels' launch counts set to 0
 just before it and read just after; a path that launched a kernel of its
 own no time fails the run (the block imports of phases 3b and 3c need both
 the SHA-256 kernel and the three field kernels; phase 3d's planes the
-SHA-256 kernel, its vector commitment the three field kernels).  Needs one card, ``nvcc``,
+SHA-256 kernel, its vector commitment the three field kernels).  A call on
+its default route through a size gate must launch every field kernel at or
+above the gate's threshold and none below it.  Needs one card, ``nvcc``,
 ``cuobjdump`` and ``g++``; exits nonzero without a card.  Longer records
 land in ``chiprun_out/chip_smoke.json``.
 """
@@ -196,6 +217,18 @@ WITNESS_FIELDS = ("balances", "validators", "inactivity_scores",
                   "previous_epoch_participation", "current_epoch_participation")
 WITNESS_SAMPLE, COALESCE_THREADS, COALESCE_REQUESTS = 64, 32, 8
 VC_OPENED, VC_FOLD, VC_FOLD_WIDTH = 16, 64, 4
+# the size routes (after phase 6): each route timed warm, the median of
+# ROUTE_REPS runs, on sets of ROUTE_SET_SIZES entries tiled from phase 6's
+# duty entries (swept from the largest down), on the first ROUTE_DRAIN_SIZES
+# of phase 3c's drain (re-submitted; the cached body also cold at
+# ROUTE_COLD_DRAIN) and on the first ROUTE_BLOCK_SIZES aggregates of phase
+# 3c's block; a route that loses along its sweep (the card on the set, the
+# host on the drain and the block) stops once another route has been at
+# least as fast at ROUTE_STOP sizes in a row, and the sweep ends with it
+ROUTE_SET_SIZES = (16384, 8192, 4096, 2048, 1024, 128, 16, 1)
+ROUTE_DRAIN_SIZES = (1, 4, 8, 16, 64, 128, 256, 512, 1024)
+ROUTE_BLOCK_SIZES = (8, 16, 32, 64, 128)
+ROUTE_REPS, ROUTE_COLD_DRAIN, ROUTE_STOP = 3, 64, 2
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -705,6 +738,53 @@ def _counted(fn, path: str):
     return out, seconds, launches
 
 
+@contextlib.contextmanager
+def _constant(module, name: str, value):
+    """Set the module constant ``module.name`` to ``value`` inside, and
+    restore it after (a route forced by its threshold)."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _drain_gate(value: int):
+    """The drain's threshold (``fork_choice/handlers.DRAIN_DEVICE_MIN``) at
+    ``value``: at 0 every drain takes the cached body."""
+    from lambda_ethereum_consensus_tpu_torch.fork_choice import handlers as FH
+
+    return _constant(FH, "DRAIN_DEVICE_MIN", value)
+
+
+def _device_chain(value: int = 0):
+    """The set gate (``crypto/bls/batch.DEVICE_CHAIN_MIN``) at ``value``:
+    at 0 every set takes the chained device route."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
+
+    return _constant(B, "DEVICE_CHAIN_MIN", value)
+
+
+def _default_route(fn, on_device: bool, path: str):
+    """Run ``fn`` once on its default route with the launch counts zeroed
+    just before, and check that it launched what its size gate picks: every
+    field kernel at or above the threshold, none below.  Returns (result,
+    seconds, launches)."""
+    if on_device:
+        return _counted(fn, path)
+    _zero_fq_launches()
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    if _total(launches):
+        raise AssertionError(f"{path} stayed under its threshold and still launched {launches}")
+    return out, seconds, launches
+
+
 def _reset_peak() -> None:
     import torch
 
@@ -999,12 +1079,15 @@ def transition_phase(dev, rng, record: dict, state, spec):
     def import_block(block, parent):
         return state_transition(parent, block, validate_result=True, spec=spec, device=dev)
 
+    # the import's signature set on the device chain (the set gate at 0), as
+    # phase 9's "block import" path runs it; the default route further down
     parent = _primed(card, spec)
     _zero_fq_launches()
     sops.sha256_kernel_launches = 0
     _sync()
     t0 = time.perf_counter()
-    imported = import_block(signed, parent)
+    with _device_chain():
+        imported = import_block(signed, parent)
     _sync()
     import_s = time.perf_counter() - t0
     fq = _launches()
@@ -1022,8 +1105,7 @@ def transition_phase(dev, rng, record: dict, state, spec):
             signed.message.body.hash_tree_root(spec, backend=HashlibBackend()):
         raise AssertionError("the imported header does not carry the block's body")
     parent = _primed(card, spec)
-    block_set = []
-    with _block_sets(block_set):
+    with _device_chain():
         wall, busy = _profiled(lambda: import_block(signed, parent))
 
     body = signed.message.body
@@ -1041,11 +1123,18 @@ def transition_phase(dev, rng, record: dict, state, spec):
         reject_s = time.perf_counter() - t0
     else:
         raise AssertionError("a block with a swapped attestation signature was imported")
+    route = _block_route(members, len(atts))
+    parent = _primed(card, spec)
+    _, default_s, default_fq = _default_route(
+        lambda: import_block(signed, parent), route != HOST_TAIL,
+        "block import (default route)")
     peak = _peak_mib()
     print(f"block {block_slot}: {len(atts)} attestations ({members} members) and a "
           f"{spec.SYNC_COMMITTEE_SIZE}-member sync aggregate, minted in {mint_s:.3f} s")
-    print(f"block import with validate_result=True: {import_s:.3f} s; {sha} SHA-256 launches, "
-          f"{_total(fq)} field launches {fq}")
+    print(f"block import with validate_result=True, its signatures on the device chain: "
+          f"{import_s:.3f} s; {sha} SHA-256 launches, {_total(fq)} field launches {fq}")
+    print(f"block import on the default route ({ROUTE_LABEL[route]}): {default_s:.3f} s, "
+          f"{_total(default_fq)} field launches")
     print(f"imported state's root == the block's state root through hashlib "
           f"({hashlib_s:.3f} s on the host)")
     print(_idle_line("block import", wall, busy) + f"; peak device memory {peak:.0f} MiB")
@@ -1079,6 +1168,7 @@ def transition_phase(dev, rng, record: dict, state, spec):
                for name, w in walks.items()},
         plane_stats=dict(plane.stats), plane_device_bytes=plane.device_bytes,
         mint_s=mint_s, import_s=import_s, import_sha256_launches=sha, import_fq_launches=fq,
+        default_route=route, default_import_s=default_s, default_import_fq_launches=default_fq,
         import_hashlib_root_s=hashlib_s,
         profiled_import_s=wall, import_device_busy_ms=busy, reject_s=reject_s, peak_mib=peak,
         rebuild_crossover=crossover, seconds=time.perf_counter() - t_phase,
@@ -1087,12 +1177,13 @@ def transition_phase(dev, rng, record: dict, state, spec):
     def import_path():
         prev = set_hash_backend(device_backend)
         try:
-            return import_block(signed, _primed(card, spec))
+            with _device_chain():
+                return import_block(signed, _primed(card, spec))
         finally:
             set_hash_backend(prev)
 
     return dict(import_path=import_path, start=start, start_sks=start_sks, sync_keys=sync_keys,
-                block_set=block_set[0], walk_end=walks["card"]["end"],
+                walk_end=walks["card"]["end"],
                 walk_root=walks["card"]["final_root"])
 
 
@@ -1172,12 +1263,13 @@ def _block_sets(seen: list):
 
 
 @contextlib.contextmanager
-def _entry_counts(module, attr: str, seen: list):
-    """Record the entry count of every call of ``module.attr`` inside."""
+def _entry_counts(module, attr: str, seen: list, keep: bool = False):
+    """Record the entry count of every call of ``module.attr`` inside (the
+    entries themselves with ``keep``)."""
     real = getattr(module, attr)
 
     def counted(entries, *args, **kwargs):
-        seen.append(len(entries))
+        seen.append(list(entries) if keep else len(entries))
         return real(entries, *args, **kwargs)
 
     setattr(module, attr, counted)
@@ -1187,49 +1279,38 @@ def _entry_counts(module, attr: str, seen: list):
         setattr(module, attr, real)
 
 
-def block_routes(dev, spec, block_sets: dict) -> dict:
-    """Both routes of ``_verify_deferred_attestations`` on each block's
-    signature set, on the card: ``verify_points`` over host sums of the
-    members' keys, and the committee cache's one chained check.  Each route
-    runs twice, first cold (``verify_points`` with the pubkey decompression
-    cache as the run left it, the committee cache with no state context:
-    the epoch's committees and their sums built again), then warm; every
-    verdict must be True."""
-    from lambda_ethereum_consensus_tpu_torch.fork_choice import attestation as FA
+# the routes of a block's signature set, and what each is
+HOST_TAIL, DEVICE_CHAIN, COMMITTEE_CACHE = "host_tail", "device_chain", "cached"
+ROUTE_LABEL = {HOST_TAIL: "host sums, host tail", DEVICE_CHAIN: "host sums, device chain",
+               COMMITTEE_CACHE: "committee cache"}
+
+
+def _block_route(members: int, aggregates: int) -> str:
+    """The route ``_verify_deferred_attestations`` takes at the current
+    constants for a block of ``aggregates`` attestations and ``members``
+    attesting members."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
     from lambda_ethereum_consensus_tpu_torch.state_transition import operations
 
-    saved = operations.BLOCK_BATCH_MIN_MEMBERS
-    out = {}
-    try:
-        for name, (state, deferred) in block_sets.items():
-            members = sum(len(ind.attesting_indices) for _, ind, _, _ in deferred)
-            row = dict(aggregates=len(deferred), members=members)
-            for route, threshold in (("points", members + 1), ("cached", 0)):
-                operations.BLOCK_BATCH_MIN_MEMBERS = threshold
-                for run in ("first", "warm"):
-                    if route == "cached" and run == "first":
-                        FA._STATE_CTX.clear()
-                    _sync()
-                    t0 = time.perf_counter()
-                    ok = operations._verify_deferred_attestations(state, deferred, spec, dev)
-                    _sync()
-                    row[f"{route}_{run}_s"] = time.perf_counter() - t0
-                    if ok is not True:
-                        raise AssertionError(f"{name}: the {route} route rejected the block")
-            out[name] = row
-            print(f"{name} ({len(deferred)} aggregates, {members} members), both routes True: "
-                  f"verify_points over host sums {row['points_first_s']:.3f} s first, "
-                  f"{row['points_warm_s']:.3f} s warm; committee cache "
-                  f"{row['cached_first_s']:.3f} s with a cold state context, "
-                  f"{row['cached_warm_s']:.3f} s warm")
-    finally:
-        operations.BLOCK_BATCH_MIN_MEMBERS = saved
-    return out
+    if members >= operations.BLOCK_BATCH_MIN_MEMBERS:
+        return COMMITTEE_CACHE
+    return DEVICE_CHAIN if aggregates >= B.DEVICE_CHAIN_MIN else HOST_TAIL
+
+
+def _block_forced(route: str, members: int, aggregates: int):
+    """Both constants set so that ``_verify_deferred_attestations`` takes
+    ``route`` for such a block."""
+    from lambda_ethereum_consensus_tpu_torch.state_transition import operations
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(_constant(operations, "BLOCK_BATCH_MIN_MEMBERS",
+                                  0 if route == COMMITTEE_CACHE else members + 1))
+    stack.enter_context(_device_chain(aggregates + 1 if route == HOST_TAIL else 0))
+    return stack
 
 
 def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: dict,
-               keys: list[int], points: list, compressed: list[bytes],
-               transition_set: tuple) -> dict:
+               keys: list[int], points: list, compressed: list[bytes]) -> tuple[dict, dict]:
     """Phase 3c: a node's slot at 1,000,000 validators through the port's
     fork choice on the card.
 
@@ -1247,9 +1328,9 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
     cold, warm and profiled, every verdict None, the latest messages exactly
     the participants' votes for the block and ``get_head`` the block; a
     second drain of fresh aggregates blames exactly its forged one; and a
-    sample is held against the host oracle.  Last, both block routes are
-    timed on phase 3b's block (``transition_set``) and on this one.
-    Returns phase 9's paths."""
+    sample is held against the host oracle.  Returns phase 9's paths, and
+    the store, the drain and the block's signature set for the size-routes
+    phase."""
     import torch
 
     from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
@@ -1483,24 +1564,39 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
             raise AssertionError(f"{tag} drain rejected valid aggregates: {bad_at}")
 
     # cold: the store's context and committee cache are built; warm: reused
-    # (the warm run is also the profiled one)
+    # (the warm run is also the profiled one).  Both, and phase 9's drain
+    # path, run the sparse entries on the device chain too (the set gate at
+    # 0); their default route follows.
     sparse_calls = []
-    with _entry_counts(B, "batch_verify_each_points", sparse_calls):
+    with _entry_counts(B, "batch_verify_each_points", sparse_calls, keep=True), \
+            _device_chain():
         verdicts, cold_s, cold_launches = _counted(
             lambda: FC.on_attestation_batch(store, drain, spec=spec, device=dev),
             "fork-choice drain (cold)")
     expect_accepted(verdicts, "cold")
-    if sparse not in drain_over or sparse_calls != [len(drain_over)]:
+    if sparse not in drain_over or [len(e) for e in sparse_calls] != [len(drain_over)]:
         raise AssertionError(f"{len(drain_over)} aggregates over mmax, the sparse route "
-                             f"took {sparse_calls}")
+                             f"took {[len(e) for e in sparse_calls]}")
+    sparse_entries = sparse_calls[0]
+    with _device_chain():
+        flags, sparse_chain_s, _ = _counted(
+            lambda: B.batch_verify_each_points(sparse_entries, device=dev),
+            "sparse host-aggregate entries (device chain)")
+    sparse_default = len(sparse_entries) >= B.device_chain_threshold()
+    default_flags, sparse_default_s, sparse_default_launches = _default_route(
+        lambda: B.batch_verify_each_points(sparse_entries, device=dev), sparse_default,
+        "sparse host-aggregate entries (default route)")
+    if not all(flags) or default_flags != flags:
+        raise AssertionError(f"the sparse entries: device chain {flags}, default {default_flags}")
     ctxs = list(store.attestation_contexts.values())
     if len(ctxs) != 1 or ctxs[0]._device_cache is None or \
             ctxs[0].device != _indexed_device(dev):
         raise AssertionError("the drain did not run on one committee cache on the card")
     warm = []
     _zero_fq_launches()
-    prof_s, prof_busy = _profiled(
-        lambda: warm.append(FC.on_attestation_batch(store, drain, spec=spec, device=dev)))
+    with _device_chain():
+        prof_s, prof_busy = _profiled(
+            lambda: warm.append(FC.on_attestation_batch(store, drain, spec=spec, device=dev)))
     warm_launches = _launches()
     _require_all(warm_launches, "fork-choice drain (warm)")
     expect_accepted(warm[0], "warm")
@@ -1517,8 +1613,11 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
     head_s = time.perf_counter() - t0
     if head != block_root or store.head_cache.head() != block_root:
         raise AssertionError(f"get_head {head.hex()} is not the block {block_root.hex()}")
-    print(f"sparse host-aggregate route: {sparse_calls[0]} entries (aggregate {sparse} "
-          f"among them) through batch_verify_each_points in the cold drain")
+    print(f"sparse host-aggregate route: {len(sparse_entries)} entries (aggregate {sparse} "
+          f"among them) through batch_verify_each_points in the cold drain; again alone, "
+          f"every flag True: device chain {sparse_chain_s:.3f} s, default route "
+          f"({'device chain' if sparse_default else 'host tail'}) {sparse_default_s:.3f} s, "
+          f"{_total(sparse_default_launches)} field launches")
     print(f"on_attestation_batch of {len(drain)} aggregates: cold {runs[0][0]:.3f} s, warm "
           f"(profiled) {runs[1][0]:.3f} s; every verdict None; {_total(runs[1][1])} field "
           f"launches {runs[1][1]} (cold {_total(runs[0][1])})")
@@ -1526,13 +1625,18 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
     print(f"latest messages == the {len(voters)} participants' votes for the block; get_head "
           f"== the block in {head_s:.3f} s")
 
-    verdicts, second_s, second_launches = _counted(
+    def expect_forged(verdicts) -> None:
+        blamed = [i for i, v in enumerate(verdicts) if v is not None]
+        if blamed != [forged] or not verdicts[forged].reject:
+            raise AssertionError(f"the second drain blamed {blamed}")
+
+    # on its default route, the cached body: every field kernel must launch
+    verdicts, second_s, second_launches = _default_route(
         lambda: FC.on_attestation_batch(store, second, spec=spec, device=dev),
-        "fork-choice drain (forged)")
-    blamed = [i for i, v in enumerate(verdicts) if v is not None]
-    if blamed != [forged] or not verdicts[forged].reject:
-        raise AssertionError(f"the second drain blamed {blamed}")
-    print(f"second drain of {len(second)} fresh aggregates: exactly aggregate {forged} rejected "
+        len(second) >= FC.attestation_batch_target(), "fork-choice drain (forged)")
+    expect_forged(verdicts)
+    print(f"second drain of {len(second)} fresh aggregates on its default route (the cached "
+          f"body from {FC.attestation_batch_target()}): exactly aggregate {forged} rejected "
           f"(reject=True) in {second_s:.3f} s, {_total(second_launches)} field launches")
 
     # ---- a sample against the host oracle (native rlc_verify)
@@ -1550,10 +1654,6 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
     print(f"{ORACLE_SAMPLE}-aggregate sample: host oracle (native rlc_verify) True like the "
           f"drain in {oracle_s:.3f} s, and False with one signature swapped")
 
-    # ---- both block routes on phase 3b's block and on this one
-    out["block_routes"] = block_routes(dev, spec, {"phase 3b block": transition_set,
-                                                   "mainnet block": block_set[0]})
-
     peak = _peak_mib()
     print(f"peak device memory in the node phase {peak:.0f} MiB")
     set_hash_backend(HashlibBackend())
@@ -1564,13 +1664,15 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
                         warm_launches=runs[1][1], device_busy_ms=prof_busy,
                         idle_share=1 - prof_busy / 1e3 / prof_s, voters=len(voters),
                         get_head_s=head_s, second_aggregates=len(second), second_s=second_s,
-                        second_launches=second_launches, oracle_s=oracle_s)
+                        second_launches=second_launches, sparse_chain_s=sparse_chain_s, sparse_default_s=sparse_default_s,
+                        sparse_default_launches=sparse_default_launches, oracle_s=oracle_s)
     out.update(anchor_s=anchor_s, store_s=store_s, peak_mib=peak,
                seconds=time.perf_counter() - t_phase)
     record["node"] = out
 
     def drain_path():
-        return FC.on_attestation_batch(store, drain, spec=spec, device=dev)
+        with _device_chain():
+            return FC.on_attestation_batch(store, drain, spec=spec, device=dev)
 
     def import_path():
         prev = set_hash_backend(device_backend)
@@ -1580,7 +1682,8 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
         finally:
             set_hash_backend(prev)
 
-    return {"fork-choice drain": drain_path, "mainnet block import": import_path}
+    paths = {"fork-choice drain": drain_path, "mainnet block import": import_path}
+    return paths, dict(store=store, drain=drain, block_set=block_set[0])
 
 class _MetricCounts:
     """A metrics sink for the witness modules: counts each ``inc`` by name
@@ -1987,9 +2090,12 @@ def sign_phase(dev, rng, record: dict) -> dict:
                 sigs=sigs, hashed=dict(zip(distinct, hashed)))
 
 
-def sets_phase(dev, rng, record: dict, duty: dict) -> None:
+def sets_phase(dev, rng, record: dict, duty: dict) -> dict:
     """Phase 6: the duty flush's (pk, message, signature) entries as
-    signature sets."""
+    signature sets, each on the device chain (the set gate at 0) and again
+    on its default route, whose launches must be what the gate picks.
+    Returns the entries and their message points for the size-routes
+    phase."""
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
     from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import DST_POP
@@ -2002,35 +2108,37 @@ def sets_phase(dev, rng, record: dict, duty: dict) -> None:
     pk_s = time.perf_counter() - t0
     memo = {(m, DST_POP): h for m, h in duty["hashed"].items()}
     entries = [(pk, m, sig) for pk, m, sig in zip(pks, msgs, sig_points)]
-    ok, set_s, set_launches = _counted(
-        lambda: B.verify_points(entries, message_points=memo, device=dev), "verify_points")
-    if ok is not True:
-        raise AssertionError(f"verify_points over {len(entries)} valid entries: {ok}")
     items = [(C.g1_to_bytes(pk), m, sig) for pk, m, sig in zip(pks, msgs, duty["sigs"])]
-    ok, bytes_s, _ = _counted(lambda: B.batch_verify(items, device=dev), "batch_verify")
-    if ok is not True:
-        raise AssertionError(f"batch_verify over {len(items)} valid byte triples: {ok}")
-
     bad = SIGNERS // 3
     other = bad ^ 1  # a co-signer of the same message
     swapped = list(entries)
     swapped[bad] = (pks[bad], msgs[bad], sig_points[other])
-    flags, blame_s, blame_launches = _counted(
-        lambda: B.batch_verify_each_points(swapped, message_points=memo, device=dev),
-        "batch_verify_each_points")
-    if flags != [i != bad for i in range(len(swapped))]:
-        raise AssertionError(f"bisection blamed {[i for i, f in enumerate(flags) if not f]}")
-    with_none = list(entries)
-    with_none[7] = (None, msgs[7], sig_points[7])
-    if B.verify_points(with_none, message_points=memo, device=dev) is not False:
-        raise AssertionError("a None point did not fail the set")
-
     single = entries[:1]
-    _, cold_s, single_launches = _counted(
-        lambda: B.verify_points(single, device=dev), "verify_points (one entry, cold)")
-    ok, warm_s, warm_launches = _counted(
-        lambda: B.verify_points(single, message_points=memo, device=dev),
-        "verify_points (one entry, warm)")
+    want_flags = [i != bad for i in range(len(swapped))]
+
+    with _device_chain():
+        ok, set_s, set_launches = _counted(
+            lambda: B.verify_points(entries, message_points=memo, device=dev), "verify_points")
+        if ok is not True:
+            raise AssertionError(f"verify_points over {len(entries)} valid entries: {ok}")
+        ok, bytes_s, _ = _counted(lambda: B.batch_verify(items, device=dev), "batch_verify")
+        if ok is not True:
+            raise AssertionError(f"batch_verify over {len(items)} valid byte triples: {ok}")
+        flags, blame_s, blame_launches = _counted(
+            lambda: B.batch_verify_each_points(swapped, message_points=memo, device=dev),
+            "batch_verify_each_points")
+        if flags != want_flags:
+            raise AssertionError(f"bisection blamed {[i for i, f in enumerate(flags) if not f]}")
+        with_none = list(entries)
+        with_none[7] = (None, msgs[7], sig_points[7])
+        if B.verify_points(with_none, message_points=memo, device=dev) is not False:
+            raise AssertionError("a None point did not fail the set")
+        _, cold_s, single_launches = _counted(
+            lambda: B.verify_points(single, device=dev), "verify_points (one entry, cold)")
+        ok, warm_s, warm_launches = _counted(
+            lambda: B.verify_points(single, message_points=memo, device=dev),
+            "verify_points (one entry, warm)")
+        wall, busy = _profiled(lambda: B.verify_points(entries, message_points=memo, device=dev))
     t0 = time.perf_counter()
     host_ok = B.verify_points(single, message_points=memo, host=True)
     host_s = time.perf_counter() - t0
@@ -2043,7 +2151,24 @@ def sets_phase(dev, rng, record: dict, duty: dict) -> None:
     host_set_s = time.perf_counter() - t0
     if host_set_ok is not True:
         raise AssertionError(f"the host tail over {len(entries)} valid entries: {host_set_ok}")
-    wall, busy = _profiled(lambda: B.verify_points(entries, message_points=memo, device=dev))
+
+    # the default routes: the gate decides by size alone
+    gate = B.device_chain_threshold()
+    default = {}
+    for name, fn, n, want in (
+        ("verify_points", lambda: B.verify_points(entries, message_points=memo, device=dev),
+         len(entries), True),
+        ("batch_verify", lambda: B.batch_verify(items, device=dev), len(items), True),
+        ("batch_verify_each_points",
+         lambda: B.batch_verify_each_points(swapped, message_points=memo, device=dev),
+         len(swapped), want_flags),
+        ("verify_points (one entry)",
+         lambda: B.verify_points(single, message_points=memo, device=dev), 1, True),
+    ):
+        got, sec, launches = _default_route(fn, n >= gate, f"{name} (default route)")
+        if got != want:
+            raise AssertionError(f"{name} on its default route disagrees with the device chain")
+        default[name] = dict(entries=n, device=n >= gate, s=sec, launches=launches)
     peak = _peak_mib()
     print(f"verify_points over {len(entries)} entries ({DUTY_MESSAGES} messages) True in "
           f"{set_s:.3f} s, {_total(set_launches)} field launches {set_launches}; "
@@ -2056,15 +2181,181 @@ def sets_phase(dev, rng, record: dict, duty: dict) -> None:
     print(f"one entry (a proposer signature): cold {cold_s:.3f} s (hash_to_g2 included), warm "
           f"{warm_s:.3f} s, {_total(warm_launches)} field launches; host check (native "
           f"rlc_verify) {host_s:.3f} s; the {len(entries)} entries on the host {host_set_s:.3f} s")
+    print(f"default routes at DEVICE_CHAIN_MIN {gate}, each verdict == the device chain's: "
+          + "; ".join(f"{name} ({r['entries']} entries, {'device chain' if r['device'] else 'host tail'}) "
+                      f"{r['s']:.3f} s, {_total(r['launches'])} field launches"
+                      for name, r in default.items()))
     print(_idle_line("verify_points", wall, busy) + f"; peak device memory {peak:.0f} MiB")
     record["sets"] = dict(
         entries=len(entries), verify_points_s=set_s, verify_points_launches=set_launches,
         batch_verify_bytes_s=bytes_s, blame_s=blame_s, blame_launches=blame_launches,
         single_cold_s=cold_s, single_warm_s=warm_s, single_launches=warm_launches,
         single_cold_launches=single_launches, single_host_s=host_s, host_set_s=host_set_s,
-        host_pubkeys_s=pk_s,
+        host_pubkeys_s=pk_s, default_routes=default,
         profiled_s=wall, device_busy_ms=busy, peak_mib=peak,
     )
+    return dict(entries=entries, memo=memo)
+
+
+def _median_run(fn, reps: int = ROUTE_REPS):
+    """(median wall seconds of ``reps`` runs of ``fn``, its result); every
+    run must return what the first did."""
+    times, results = [], []
+    for _ in range(reps):
+        _sync()
+        t0 = time.perf_counter()
+        results.append(fn())
+        _sync()
+        times.append(time.perf_counter() - t0)
+    if any(r != results[0] for r in results):
+        raise AssertionError(f"one route gave different answers across runs: {results}")
+    return sorted(times)[reps // 2], results[0]
+
+
+def _crossover(rows: list, size: str, card: str, host: str):
+    """The smallest swept size at which the card's median is at or below the
+    host route's, else None."""
+    won = [r[size] for r in rows if r[card] <= r[host]]
+    return min(won) if won else None
+
+
+def _drain_verdicts(results) -> list:
+    return [None if r is None else (str(r), r.reject) for r in results]
+
+
+def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict) -> None:
+    """The size routes: each route of the three size gates timed warm
+    (median of ROUTE_REPS runs) on either side of where it crosses, every
+    route's verdicts equal.  (a) a signature set through ``verify_points``
+    on the device chain against the host tail (native ``rlc_verify``); (b)
+    ``on_attestation_batch`` of the first k of phase 3c's drain,
+    re-submitted to its store after the warm drain, through the cached body
+    and the host body (every verdict None, the latest messages unchanged),
+    and the cached body cold once; (c) ``_verify_deferred_attestations``
+    over the first k aggregates of phase 3c's block through its three
+    routes.  Each route is forced through the constants and restored; a
+    route stops once another has been at least as fast at ROUTE_STOP sizes
+    in a row, and a sweep ends when its host side has stopped.
+    Every row is printed beside the card's name and power limit, the
+    crossovers beside the constants."""
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
+    from lambda_ethereum_consensus_tpu_torch.fork_choice import attestation as FA
+    from lambda_ethereum_consensus_tpu_torch.state_transition import operations
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    # ---- (a) the set, from the largest down: the card loses at the small end
+    entries, memo = sets["entries"], sets["memo"]
+    with _device_chain():
+        B.verify_points(entries[:1], message_points=memo, device=dev)
+    rows, losses = [], 0
+    for n in ROUTE_SET_SIZES:
+        if losses >= ROUTE_STOP:
+            break
+        tiled = (entries * -(-n // len(entries)))[:n]
+        row = {"entries": n}
+        row["host_s"], host_ok = _median_run(
+            lambda: B.verify_points(tiled, message_points=memo, host=True))
+        with _device_chain():
+            row["card_s"], card_ok = _median_run(
+                lambda: B.verify_points(tiled, message_points=memo, device=dev))
+        if (host_ok, card_ok) != (True, True):
+            raise AssertionError(f"a set of {n} valid entries: host {host_ok}, card {card_ok}")
+        losses = losses + 1 if row["card_s"] > row["host_s"] else 0
+        rows.append(row)
+        print(f"size route, set of {n} entries (verify_points): card {row['card_s']:.4f} s, "
+              f"host tail {row['host_s']:.4f} s; every verdict True [{card}]")
+    out["set"] = dict(rows=rows, crossover=_crossover(rows, "entries", "card_s", "host_s"),
+                      constant=B.DEVICE_CHAIN_MIN)
+
+    # ---- (b) the drain, re-submitted after phase 3c's warm drain
+    store, drain = node["store"], node["drain"]
+    before = dict(store.latest_messages)
+    accepted = [None] * max(ROUTE_DRAIN_SIZES)
+    with _drain_gate(0):
+        FC.on_attestation_batch(store, drain[:ROUTE_DRAIN_SIZES[0]], spec=spec, device=dev)
+    rows, losses = [], 0
+    for k in ROUTE_DRAIN_SIZES:
+        if losses >= ROUTE_STOP:
+            break
+        sub = drain[:k]
+        row = {"aggregates": k}
+        with _drain_gate(0):
+            row["cached_s"], got = _median_run(lambda: _drain_verdicts(
+                FC.on_attestation_batch(store, sub, spec=spec, device=dev)))
+        with _drain_gate(k + 1):
+            row["host_s"], host_got = _median_run(lambda: _drain_verdicts(
+                FC.on_attestation_batch(store, sub, spec=spec, device=dev)))
+        if got != accepted[:k] or host_got != accepted[:k]:
+            raise AssertionError(f"the drain of {k}: verdicts not all None on both bodies")
+        losses = losses + 1 if row["cached_s"] <= row["host_s"] else 0
+        rows.append(row)
+        print(f"size route, drain of {k} aggregates (on_attestation_batch): cached body "
+              f"{row['cached_s']:.4f} s, host body {row['host_s']:.4f} s; every verdict None "
+              f"[{card}]")
+    store.attestation_contexts.clear()
+    with _drain_gate(0):
+        cold_s, got = _median_run(lambda: _drain_verdicts(FC.on_attestation_batch(
+            store, drain[:ROUTE_COLD_DRAIN], spec=spec, device=dev)), reps=1)
+    if got != accepted[:ROUTE_COLD_DRAIN]:
+        raise AssertionError("the cold cached drain rejected valid aggregates")
+    if store.latest_messages != before:
+        raise AssertionError("re-submitted aggregates moved the latest messages")
+    print(f"size route, drain of {ROUTE_COLD_DRAIN} aggregates, cached body cold (no epoch "
+          f"context: committees and their sums built again): {cold_s:.4f} s; the latest "
+          f"messages unchanged [{card}]")
+    out["drain"] = dict(rows=rows, crossover=_crossover(rows, "aggregates", "cached_s", "host_s"),
+                        cold_aggregates=ROUTE_COLD_DRAIN, cold_cached_s=cold_s,
+                        constant=FC.attestation_batch_target())
+
+    # ---- (c) the block's signature set: the committee cache against host
+    # sums on the host tail and on the device chain
+    state, deferred = node["block_set"]
+    with _block_forced(COMMITTEE_CACHE, 0, 0):
+        operations._verify_deferred_attestations(state, deferred[:1], spec, dev)
+    rows, losses = [], {HOST_TAIL: 0, DEVICE_CHAIN: 0}
+    for k in ROUTE_BLOCK_SIZES:
+        if min(losses.values()) >= ROUTE_STOP:
+            break
+        sub = deferred[:k]
+        members = sum(len(ind.attesting_indices) for _, ind, _, _ in sub)
+        row = {"aggregates": k, "members": members}
+        for route in (COMMITTEE_CACHE, HOST_TAIL, DEVICE_CHAIN):
+            if losses.get(route, 0) >= ROUTE_STOP:
+                continue
+            with _block_forced(route, members, k):
+                row[f"{route}_s"], ok = _median_run(
+                    lambda: operations._verify_deferred_attestations(state, sub, spec, dev))
+            if ok is not True:
+                raise AssertionError(f"{k} aggregates: the {ROUTE_LABEL[route]} route said {ok}")
+        # a host-sum route loses where another route ran at most as long
+        for route in losses:
+            if f"{route}_s" in row:
+                others = [row[f"{r}_s"] for r in ROUTE_LABEL if r != route and f"{r}_s" in row]
+                losses[route] = losses[route] + 1 if min(others) <= row[f"{route}_s"] else 0
+        # the host-sum route the set gate picks for this many aggregates
+        row["host_sums"] = DEVICE_CHAIN if k >= B.DEVICE_CHAIN_MIN else HOST_TAIL
+        rows.append(row)
+        print(f"size route, block set of {k} aggregates ({members} members): "
+              + "; ".join(f"{ROUTE_LABEL[r]} " + (f"{row[f'{r}_s']:.4f} s" if f"{r}_s" in row
+                                                   else "stopped") for r in ROUTE_LABEL)
+              + f"; every verdict True [{card}]")
+    won = [r["members"] for r in rows if f"{r['host_sums']}_s" not in r
+           or r["cached_s"] <= r[f"{r['host_sums']}_s"]]
+    out["block"] = dict(rows=rows, crossover_members=min(won) if won else None,
+                        constant=operations.BLOCK_BATCH_MIN_MEMBERS)
+    FA._STATE_CTX.clear()
+
+    out["seconds"] = time.perf_counter() - t_phase
+    record["size_routes"] = out
+    print(f"size-route crossovers (the card's median at or below the host's): set "
+          f"{out['set']['crossover']} entries (DEVICE_CHAIN_MIN {B.DEVICE_CHAIN_MIN}), drain "
+          f"{out['drain']['crossover']} aggregates (DRAIN_DEVICE_MIN, attestation_batch_target() "
+          f"{FC.attestation_batch_target()}), block {out['block']['crossover_members']} members "
+          f"against the host sums the set gate picks (BLOCK_BATCH_MIN_MEMBERS "
+          f"{operations.BLOCK_BATCH_MIN_MEMBERS}); phase {out['seconds']:.1f} s [{card}]")
 
 
 def kzg_setup(record: dict):
@@ -2558,9 +2849,9 @@ def main() -> int:
 
     # ---- phase 3c: the node's slot through fork choice, at the same registry
     t0 = time.perf_counter()
-    node_paths = node_phase(dev, rng, record, spec, transition["start"], transition["start_sks"],
-                            transition["sync_keys"], keys, key_points, compressed,
-                            transition.pop("block_set"))
+    node_paths, node_routes = node_phase(dev, rng, record, spec, transition["start"],
+                                         transition["start_sks"], transition["sync_keys"], keys,
+                                         key_points, compressed)
     print(f"node phase {time.perf_counter() - t0:.1f} s")
     del transition["start"], key_points, compressed
 
@@ -2580,8 +2871,10 @@ def main() -> int:
     duty = sign_phase(dev, rng, record)
     print(f"duty-signing phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sets_phase(dev, rng, record, duty)
+    sets = sets_phase(dev, rng, record, duty)
     print(f"signature-set phase {time.perf_counter() - t0:.1f} s")
+    size_routes_phase(dev, record, card, spec, sets, node_routes)
+    del sets, node_routes
     t0 = time.perf_counter()
     setup = kzg_setup(record)
     mul_phase(dev, rng, record, duty, setup)

@@ -10,21 +10,25 @@ pairing-product equation instead of 2N pairings:
 
 with independent coefficients ``r_i`` of ``coeff_bits`` bits (default
 :data:`COEFF_BITS`, 64, the JAX package's deployed ``BLS_RLC_BITS``), items
-grouped by distinct message.  Each check runs whole on the device
-(:func:`..ops.bls_batch.chain_verify`, or ``chain_verify_cached`` over an
-epoch committee cache for the attestation drain and, without blame, for a
-block's attestations: :func:`verify_cached`).  A failed range is split
-in half, level by level: every range of one bisection level goes to the
-device together as one chained call, so ``b`` bad items cost O(log N)
-device round trips.
+grouped by distinct message.
 
-Two pieces of the JAX package are not carried over.  Its
-``BLS_DEVICE_CHAIN_MIN`` size gate sent small batches to the host; it was
-tuned to a TPU's dispatch cost, so here every check goes to the device until
-the card's crossover is measured.  Its containment re-verified on the host
-after a device fault; here a device error raises.  The host tail,
-:func:`_verify_points_host` (the native C++ RLC check, else pure Python),
-runs only when the caller asks for it (``host=True``).
+The route is decided by size alone, before anything launches (the JAX
+package's ``BLS_DEVICE_CHAIN_MIN`` gate, here the module constant
+:data:`DEVICE_CHAIN_MIN`).  A set of at least that many entries runs whole
+on the device as one chained check (:func:`..ops.bls_batch.chain_verify`);
+a smaller one runs on the host tail, :func:`_verify_points_host` (the native
+C++ RLC check, else pure Python).  Either way the device is resolved first,
+so ``device=None`` raises without a card at every size.  A failed range is
+split in half, level by level; a level whose longest range reaches the
+constant goes to the device together as one chained call, so ``b`` bad
+items cost O(log N) device round trips.  The attestation drain and a block's
+attestations check through an epoch committee cache instead
+(``chain_verify_cached``: :func:`batch_verify_each_cached`,
+:func:`verify_cached`); their callers pick that body, so those two are not
+gated here.
+
+The JAX package's containment re-verified on the host after a device fault;
+here a device error raises.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import secrets
 from typing import Sequence
 
 from ...ops.rlc import COEFF_BITS
+from ...ops.sha256 import resolve_device
 from . import curve as C
 from . import native
 from .curve import DeserializationError
@@ -42,15 +47,32 @@ from .pairing import pairing_check
 
 __all__ = [
     "COEFF_BITS",
+    "DEVICE_CHAIN_MIN",
     "batch_verify",
     "batch_verify_each_cached",
     "batch_verify_each_points",
+    "device_chain_threshold",
     "verify_cached",
     "verify_points",
 ]
 
 # entry: (g1 affine point, message bytes, g2 affine point)
 PointEntry = tuple
+
+# entries from which a signature set's check runs on the device; below it
+# the host tail answers.  On an H100 the card's chain did not beat the
+# native host tail up to 16,384 entries (PERF.md, the median of three runs:
+# 2.05 against 1.72 s there, 1.66 against 0.91 s at 8,192), so the gate
+# sits just above the largest size measured.  The JAX package's
+# BLS_DEVICE_CHAIN_MIN default, 128, was tuned to a TPU's dispatch cost.
+DEVICE_CHAIN_MIN = 16385
+
+
+def device_chain_threshold() -> int:
+    """The set size from which :func:`verify_points` and each level of
+    :func:`batch_verify_each_points` run on the device: the one place both
+    read :data:`DEVICE_CHAIN_MIN`."""
+    return DEVICE_CHAIN_MIN
 
 
 def _message_point(message: bytes, dst: bytes, message_points: dict):
@@ -106,8 +128,8 @@ def _bisect(n: int, dead, check_ranges) -> list[bool]:
 def _scale_entries(entries, coeffs, bits: int = COEFF_BITS, device=None):
     """``[(r_i * pk_i)], [(r_i * sig_i)]`` through the batched ladders on
     ``device`` (default: the card).  The JAX package's host tail scales
-    through this above its size gate; no entry point of the port calls it
-    until that gate is ported."""
+    through this above its own size gate (``BLS_DEVICE_MSM_MIN``); no entry
+    point of the port calls it until that gate is ported."""
     from ...ops.bls_g1 import batch_g1_mul
     from ...ops.bls_g2 import batch_g2_mul
 
@@ -124,9 +146,11 @@ def verify_points(
     coeff_bits: int = COEFF_BITS,
     host: bool = False,
 ) -> bool:
-    """The RLC check over already-decompressed, subgroup-checked points, as
-    one chained check on ``device`` (default: the card); ``host=True`` runs
-    the host tail :func:`_verify_points_host` instead.
+    """The RLC check over already-decompressed, subgroup-checked points:
+    from :data:`DEVICE_CHAIN_MIN` entries up one chained check on ``device``
+    (default: the card, resolved first at every size), below it the host
+    tail :func:`_verify_points_host`; ``host=True`` asks for the host tail
+    at any size.
 
     A ``None`` point is undecodable, so the batch is invalid.
     ``message_points`` memoizes ``hash_to_g2`` across calls.
@@ -139,10 +163,13 @@ def verify_points(
         message_points = {}
     if host:
         return _verify_points_host(entries, dst, message_points, coeff_bits)
+    dev = resolve_device(device)
+    if len(entries) < device_chain_threshold():
+        return _verify_points_host(entries, dst, message_points, coeff_bits)
     from ...ops import bls_batch
 
     check = _pack_check(entries, dst, message_points, coeff_bits)
-    return bls_batch.chain_verify([check], device, coeff_bits)[0]
+    return bls_batch.chain_verify([check], dev, coeff_bits)[0]
 
 
 def _verify_points_host(
@@ -182,18 +209,24 @@ def batch_verify_each_points(
     coeff_bits: int = COEFF_BITS,
 ) -> list[bool]:
     """Per-entry validity of ``(pk, message, sig)`` point entries with
-    bisection blame; each level's ranges go to ``device`` (default: the
-    card) as one chained call.  Ranges holding a ``None`` point fail without
-    reaching the device."""
+    bisection blame.  A level whose longest range reaches
+    :data:`DEVICE_CHAIN_MIN` goes to ``device`` (default: the card, resolved
+    first at every size) as one chained call; a smaller level checks each
+    range on the host tail.  Ranges holding a ``None`` point fail without a
+    check."""
     from ...ops import bls_batch
 
+    dev = resolve_device(device)
     if message_points is None:
         message_points = {}
 
     def check_ranges(ranges):
+        if max(map(len, ranges)) < device_chain_threshold():
+            return [_verify_points_host([entries[i] for i in r], dst, message_points, coeff_bits)
+                    for r in ranges]
         checks = [_pack_check([entries[i] for i in r], dst, message_points, coeff_bits)
                   for r in ranges]
-        return bls_batch.chain_verify(checks, device, coeff_bits)
+        return bls_batch.chain_verify(checks, dev, coeff_bits)
 
     return _bisect(len(entries), lambda i: entries[i][0] is None or entries[i][2] is None,
                    check_ranges)
@@ -274,7 +307,8 @@ def batch_verify(
     coeff_bits: int = COEFF_BITS,
 ) -> bool:
     """All-or-nothing batch over ``(pubkey, message, signature)`` byte
-    triples, verified as one check on ``device`` (default: the card)."""
+    triples, verified as one check through :func:`verify_points` (routed by
+    size; ``device`` defaults to the card)."""
     if not items:
         return True
     from .api import _pubkey_point

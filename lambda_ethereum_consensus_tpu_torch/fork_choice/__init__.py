@@ -17,6 +17,7 @@ from .attestation import (
     registry_planes,
 )
 from .handlers import (
+    attestation_batch_target,
     on_attestation,
     on_attestation_batch,
     on_attester_slashing,
@@ -34,6 +35,7 @@ __all__ = [
     "HeadCache",
     "LatestMessage",
     "Store",
+    "attestation_batch_target",
     "checkpoint_key",
     "device_plane_store",
     "get_attestation_context",

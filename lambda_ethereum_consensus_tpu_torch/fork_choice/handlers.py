@@ -2,16 +2,20 @@
 
 The port's copy of the JAX package's ``fork_choice/handlers.py``.
 ``on_block`` runs the full state transition; unrealized-checkpoint pull-ups
-follow spec v1.3.  ``on_attestation_batch`` drains gossip through the epoch
-committee cache on the device.
+follow spec v1.3.  ``on_attestation_batch`` picks its body by batch size
+alone, before anything launches: from :func:`attestation_batch_target`
+attestations up, the epoch committee cache on the device
+(:func:`_attestation_batch_cached`); below it, the host body
+(:func:`_attestation_batch_host`: each aggregate pubkey summed on the host,
+one :func:`..crypto.bls.batch.batch_verify_each_points`, which routes by its
+own size constant).
 
 The entry points that reach the device (``on_block``, ``on_attestation``,
 ``on_attestation_batch``) take ``device``: ``None`` means the card, resolved
-first, and they raise where it is absent; ``"cpu"`` runs the plain PyTorch
-versions.  Left out of the JAX package's module: the forensics plane, trace
-fan-in, the sharded drain, the ``BLS_DEVICE_CHAIN_MIN`` gate with its host
-body (every non-empty batch takes the cached body), and the device-fault
-containment (a device error raises).
+first at every batch size, and they raise where it is absent; ``"cpu"``
+runs the plain PyTorch versions.  Left out of the JAX package's module: the
+forensics plane, trace fan-in, the sharded drain, and the device-fault
+containment (a device error raises; nothing is retried on the host).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from ..types.beacon import Attestation, AttesterSlashing, Checkpoint, SignedBeac
 from .store import ForkChoiceError, LatestMessage, Store, checkpoint_key
 
 __all__ = [
+    "DRAIN_DEVICE_MIN",
+    "attestation_batch_target",
     "compute_pulled_up_tip",
     "on_attestation",
     "on_attestation_batch",
@@ -170,6 +176,23 @@ def compute_pulled_up_tip(store: Store, block_root: bytes, state, spec: ChainSpe
 
 # ------------------------------------------------------------- attestation
 
+# attestations from which on_attestation_batch takes the cached device body;
+# below it the host body.  The smallest drain at which the cached body was at
+# or below the host body on an H100 (PERF.md, the median of the runs: 1.62
+# against 1.99 s at 8 aggregates, 1.48 against 1.32 s at 4).  The JAX
+# package reads its set gate here; on the card the drain and the set cross
+# three orders of magnitude apart.
+DRAIN_DEVICE_MIN = 8
+
+
+def attestation_batch_target() -> int:
+    """The smallest attestation batch that takes the device body of
+    :func:`on_attestation_batch`, and the ingest scheduler's coalescing
+    target for the attestation lanes: both read :data:`DRAIN_DEVICE_MIN`,
+    at least 1."""
+    return max(1, DRAIN_DEVICE_MIN)
+
+
 def validate_target_epoch_against_current_time(
     store: Store, attestation: Attestation, spec: ChainSpec
 ) -> None:
@@ -282,25 +305,75 @@ def on_attestation_batch(
     spec: ChainSpec | None = None,
     device=None,
 ) -> list[ForkChoiceError | None]:
-    """Record many attestations with batched signature checks on ``device``
-    (default: the card).
+    """Record many attestations with batched signature checks, ``device``
+    (default: the card) resolved first.
 
-    Structural validation runs per item; aggregate pubkeys come from the
-    epoch-scoped ``DeviceCommitteeCache`` as ``full_sum[committee] -
-    sum(missing members)`` on the device, and each target context's
-    signatures are checked as one random-linear-combination chain with
+    Structural validation runs per item.  From
+    :func:`attestation_batch_target` attestations up, aggregate pubkeys come
+    from the epoch-scoped ``DeviceCommitteeCache`` as ``full_sum[committee]
+    - sum(missing members)`` on the device, each target context's
+    signatures checked as one random-linear-combination chain with
     bisection blame (one bad item costs O(log N) sub-batch levels, not 2N
-    pairings).  Accepted votes land through the vectorized
-    latest-message/head-cache batch path.  Returns one ``None`` (accepted)
-    or ``ForkChoiceError`` (rejected; ``reject`` True for a protocol
-    violation) per input.
+    pairings), and accepted votes land through the vectorized
+    latest-message/head-cache batch path.  A smaller batch takes the host
+    body.  Returns one ``None`` (accepted) or ``ForkChoiceError``
+    (rejected; ``reject`` True for a protocol violation) per input.
     """
     spec = spec or get_chain_spec()
     dev = resolve_device(device)
     results: list[ForkChoiceError | None] = [None] * len(attestations)
     if attestations:
-        _attestation_batch_cached(store, attestations, is_from_block, spec, results, dev)
+        cached = len(attestations) >= attestation_batch_target()
+        body = _attestation_batch_cached if cached else _attestation_batch_host
+        body(store, attestations, is_from_block, spec, results, dev)
     return results
+
+
+def _attestation_batch_host(store, attestations, is_from_block, spec, results, dev) -> None:
+    """The host drain body: per item, fork-choice validation, the target
+    checkpoint state, the indexed attestation and its signature inputs; the
+    aggregate pubkey summed on the host from the cached pubkey points; then
+    ONE ``batch_verify_each_points`` over the prepared entries (routed by
+    its own size constant).  Accepted votes apply per item through
+    :func:`update_latest_messages`."""
+    from ..crypto.bls import BlsError
+    from ..crypto.bls.batch import batch_verify_each_points
+    from ..crypto.bls.curve import DeserializationError, g2_from_bytes
+    from ..state_transition.operations import _sum_points
+    from ..state_transition.predicates import indexed_attestation_signature_inputs
+
+    prepared = []  # (i, attestation, indexed, point entry)
+    for i, attestation in enumerate(attestations):
+        try:
+            validate_on_attestation(store, attestation, is_from_block, spec)
+            store_target_checkpoint_state(store, attestation.data.target, spec, dev)
+            target_state = store.checkpoint_states[checkpoint_key(attestation.data.target)]
+            indexed = accessors.get_indexed_attestation(target_state, attestation, spec)
+            pubkeys, signing_root = indexed_attestation_signature_inputs(
+                target_state, indexed, spec)
+            # a sum of individually subgroup-checked (cached) points is in
+            # the subgroup: no compress/decompress/re-check round trip
+            agg_pk = _sum_points(pubkeys)
+            if agg_pk is None:
+                raise ForkChoiceError("identity pubkey in committee")
+            sig_pt = g2_from_bytes(bytes(indexed.signature))
+            prepared.append((i, attestation, indexed, (agg_pk, signing_root, sig_pt)))
+        except ForkChoiceError as e:
+            results[i] = e
+        except (BlsError, DeserializationError) as e:
+            results[i] = ForkChoiceError(str(e), reject=True)
+        except (SpecError, ValueError) as e:
+            # unknown block, timing, committee mismatch, a bad bitfield
+            # buffer: could be a race or missing context — ignore
+            results[i] = ForkChoiceError(str(e))
+    if not prepared:
+        return
+    flags = batch_verify_each_points([entry for _, _, _, entry in prepared], device=dev)
+    for (i, attestation, indexed, _), ok in zip(prepared, flags):
+        if ok:
+            update_latest_messages(store, indexed.attesting_indices, attestation)
+        else:
+            results[i] = ForkChoiceError("invalid attestation signature", reject=True)
 
 
 def _attestation_batch_cached(store, attestations, is_from_block, spec, results, dev) -> None:
@@ -311,8 +384,8 @@ def _attestation_batch_cached(store, attestations, is_from_block, spec, results,
     (aggregate pubkeys never touch the host).  Entries whose missing-member
     count exceeds the cache's correction capacity take the sparse route:
     their participants are summed on the host and checked together through
-    ``batch_verify_each_points`` on the device.  Accepted votes apply
-    through the vectorized batch updater.
+    ``batch_verify_each_points`` (routed by its own size constant).
+    Accepted votes apply through the vectorized batch updater.
     """
     from ..crypto.bls import BlsError
     from ..crypto.bls.batch import batch_verify_each_cached, batch_verify_each_points

@@ -10,7 +10,10 @@ device: every slot's state root goes through the incremental engine
 backend (the SHA-256 kernel), and every epoch boundary of a large registry
 runs on the resident plane (:mod:`.resident`), torch ops over int64
 columns held on the card.  A block's attestation signatures are checked as
-one batch by the device chain (``crypto/bls/batch.verify_points``).
+one batch, routed by size (``state_transition/operations.py``
+``_verify_deferred_attestations``): the epoch committee cache on the
+device, or host sums through ``crypto/bls/batch.verify_points``, itself
+routed between the device chain and the host tail.
 
 Entry points take ``device=None``, meaning the card, and raise where it is
 absent; ``device="cpu"`` runs the plain PyTorch versions.

@@ -275,10 +275,13 @@ def process_attestation(
 
 
 # attesting members from which a block's signatures are checked through the
-# epoch committee cache: the JAX package's BLS_BLOCK_BATCH_MIN_MEMBERS
-# default.  chip_smoke.py times both routes on the card on either side of it
-# (PERF.md); the crossover between them is not measured.
-BLOCK_BATCH_MIN_MEMBERS = 4096
+# epoch committee cache; below it, host sums through verify_points.  The
+# members of the smallest block at which the cache was at or below host sums
+# on the host tail on an H100 (PERF.md, the median of three runs: 1.92
+# against 2.56 s at 64 aggregates and 29,504 members, 2.04 against 1.68 s at
+# 32 and 14,756); the JAX package's BLS_BLOCK_BATCH_MIN_MEMBERS default is
+# 4,096.
+BLOCK_BATCH_MIN_MEMBERS = 29504
 
 
 def _verify_deferred_attestations(state, deferred, spec, device=None) -> bool:
@@ -292,8 +295,10 @@ def _verify_deferred_attestations(state, deferred, spec, device=None) -> bool:
     missing, on the device — the gossip drain's machinery,
     :func:`..fork_choice.attestation.get_state_attestation_context`); a
     smaller one sums each attestation's pubkeys on the host and checks the
-    batch through :func:`..crypto.bls.batch.verify_points`.  Both routes run
-    on the device and give the same verdict.  A device error raises.
+    batch through :func:`..crypto.bls.batch.verify_points`, which takes the
+    device chain or the host tail by its own size constant.  Every route
+    gives the same verdict; the route is decided by size before anything
+    launches.  A device error raises.
     """
     from ..crypto.bls.batch import verify_points
     from ..crypto.bls.curve import g2_from_bytes_batch

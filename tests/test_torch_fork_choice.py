@@ -14,17 +14,26 @@ bitfield of the wrong length), ``get_head``, then an attester slashing and
 ``get_head`` again.
 
 The JAX package runs its host body on the CPU (its device gate is off
-here); the port runs its cached body with the plain PyTorch versions
-(``device="cpu"``): the committee cache, the bisection over the cached
-chain, the sparse host-aggregate route.  The slot-2 block goes through the
+here).  The port runs the scenario twice, once per drain body, on the plain
+PyTorch versions (``device="cpu"``), the body chosen through the drain's
+threshold (``fork_choice/handlers.py`` ``DRAIN_DEVICE_MIN``) and the set
+gate at its default: its host body with the threshold just above the eight
+attestations (the host tail checks the prepared entries), and its cached
+body with the threshold at 0 (the committee cache, the bisection over the
+cached chain, the sparse host-aggregate route).  Every check runs
+for both bodies against the one JAX run.  The slot-2 block goes through the
 port's committee-cache branch of ``_verify_deferred_attestations``
-(``operations.BLOCK_BATCH_MIN_MEMBERS`` lowered on the port side only); the JAX
-package keeps its host route.  Tolerance: none — roots, checkpoints,
+(``operations.BLOCK_BATCH_MIN_MEMBERS`` lowered on the port side only); the
+JAX package keeps its host route.  Its signature set, captured there, also
+goes through each of the three routes alone (host sums on the host tail or
+on the device chain, the committee cache), as imported and with two
+signatures swapped.  Tolerance: none — roots, checkpoints,
 verdicts with their ``reject`` polarity, latest messages and heads are
 exact.
 
 Each chained check costs several seconds on the CPU (the device chain's
-plain version), so the scenario runs once per module and the tests read it.
+plain version), so the scenario runs once per module and body and the tests
+read it.
 """
 
 import numpy as np
@@ -57,10 +66,13 @@ from lambda_ethereum_consensus_tpu_torch.fork_choice import handlers as phandler
 from lambda_ethereum_consensus_tpu_torch.ops import bls_batch as BB
 from lambda_ethereum_consensus_tpu_torch.state_transition import operations
 from lambda_ethereum_consensus_tpu_torch.state_transition.errors import StateTransitionError
+from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
 
 N = 64
 SKS = [(i + 1).to_bytes(32, "big") for i in range(N)]
 TICK_SLOT = 3
+# the module constant from which on_attestation_batch takes the cached body
+DRAIN_CONSTANT = (phandlers, "DRAIN_DEVICE_MIN")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -207,41 +219,90 @@ def _run(fc, spec, genesis, anchor, blocks, drain, slashing, **device):
 
 
 @pytest.fixture(scope="module")
-def runs(specs, jax_chain):
-    jspec, pspec = specs
+def want(specs, jax_chain):
+    """The node slot on the JAX package's fork choice (its host drain)."""
+    jspec, _ = specs
     c = jax_chain
     with jax_use_chain_spec(jspec):
-        want = _run(jfc, jspec, c["genesis"], c["anchor"], c["blocks"], c["drain"],
+        return _run(jfc, jspec, c["genesis"], c["anchor"], c["blocks"], c["drain"],
                     c["slashing"])
+
+
+@pytest.fixture(scope="module")
+def port_runs(specs, jax_chain):
+    """The node slot on the port's fork choice through one drain body, run
+    once per body, chosen through the drain's threshold: ``"host"`` with it
+    just above the drain, ``"cached"`` with it at 0; the set gate keeps its
+    default."""
+    jspec, pspec = specs
+    c = jax_chain
+    done = {}
 
     def port(data, name):
         return convert.container_from_ssz(name, data.encode(jspec), pspec)
 
-    genesis = convert.state_from_ssz(c["genesis"].encode(jspec), pspec)
-    anchor = port(c["anchor"], "BeaconBlock")
-    blocks = [convert.block_from_ssz(b.encode(jspec), pspec) for b in c["blocks"]]
-    drain = [port(a, "Attestation") for a in c["drain"]]
-    slashing = port(c["slashing"], "AttesterSlashing")
-    mp = pytest.MonkeyPatch()
-    calls = []
-    real = operations._verify_deferred_cached
+    def run(body):
+        if body in done:
+            return done[body]
+        genesis = convert.state_from_ssz(c["genesis"].encode(jspec), pspec)
+        anchor = port(c["anchor"], "BeaconBlock")
+        blocks = [convert.block_from_ssz(b.encode(jspec), pspec) for b in c["blocks"]]
+        drain = [port(a, "Attestation") for a in c["drain"]]
+        slashing = port(c["slashing"], "AttesterSlashing")
+        mp = pytest.MonkeyPatch()
+        calls, bodies, block_sets = [], [], []
+        real = operations._verify_deferred_cached
+        real_deferred = operations._verify_deferred_attestations
 
-    def counted(*args):
-        calls.append(len(args[1]))
-        return real(*args)
+        def counted(*args):
+            calls.append(len(args[1]))
+            return real(*args)
 
-    # the slot-2 block's 8 members reach the lowered threshold: the port
-    # checks them through the committee cache
-    mp.setattr(operations, "BLOCK_BATCH_MIN_MEMBERS", 8)
-    mp.setattr(operations, "_verify_deferred_cached", counted)
-    try:
-        with use_chain_spec(pspec):
-            got = _run(pfc, pspec, genesis, anchor, blocks, drain, slashing,
-                       device="cpu")
-    finally:
-        mp.undo()
-    got["cached_block_calls"] = calls
-    return want, got
+        def captured(state, deferred, *args):
+            block_sets.append((BeaconStateMut(state.freeze()), list(deferred)))
+            return real_deferred(state, deferred, *args)
+
+        def recorded(name):
+            real_body = getattr(phandlers, name)
+
+            def call(*args):
+                bodies.append(name)
+                return real_body(*args)
+
+            mp.setattr(phandlers, name, call)
+
+        # the slot-2 block's 8 members reach the lowered threshold: the port
+        # checks them through the committee cache
+        mp.setattr(operations, "BLOCK_BATCH_MIN_MEMBERS", 8)
+        mp.setattr(operations, "_verify_deferred_cached", counted)
+        mp.setattr(operations, "_verify_deferred_attestations", captured)
+        recorded("_attestation_batch_cached")
+        recorded("_attestation_batch_host")
+        mp.setattr(*DRAIN_CONSTANT, 0 if body == "cached" else len(drain) + 1)
+        try:
+            with use_chain_spec(pspec):
+                got = _run(pfc, pspec, genesis, anchor, blocks, drain, slashing,
+                           device="cpu")
+        finally:
+            mp.undo()
+        got["cached_block_calls"] = calls
+        got["bodies"] = bodies
+        got["block_set"] = block_sets[0]
+        done[body] = got
+        return got
+
+    return run
+
+
+@pytest.fixture(scope="module", params=["host", "cached"])
+def runs(request, want, port_runs):
+    """(the JAX package's run, the port's run through one drain body)."""
+    return want, port_runs(request.param)
+
+
+@pytest.fixture(scope="module")
+def cached_run(want, port_runs):
+    return want, port_runs("cached")
 
 
 def test_blocks_import_with_equal_roots_and_checkpoints(runs):
@@ -287,6 +348,46 @@ def test_tampered_block_fails_the_committee_cache_branch(specs, jax_chain, runs)
             pfc.on_block(store, port_bad, spec=pspec, device="cpu")
     assert calls == [2]
     assert set(store.blocks) == known
+
+
+@pytest.mark.parametrize("route", ["host_tail", "device_chain", "cached"])
+def test_block_signature_routes_agree(specs, cached_run, monkeypatch, route):
+    """The slot-2 block's signature set through each route of
+    ``_verify_deferred_attestations``, forced through the two constants:
+    host sums on the host tail or on the device chain, or the committee
+    cache.  Each accepts the set as imported and rejects it with its two
+    signatures swapped (the JAX package's host route rejects that block)."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
+
+    _, pspec = specs
+    _, got = cached_run
+    state, deferred = got["block_set"]
+    members = sum(len(ind.attesting_indices) for _, ind, _, _ in deferred)
+    monkeypatch.setattr(operations, "BLOCK_BATCH_MIN_MEMBERS",
+                        0 if route == "cached" else members + 1)
+    monkeypatch.setattr(B, "DEVICE_CHAIN_MIN", len(deferred) + 1 if route == "host_tail" else 0)
+    seen = []
+
+    def spy(module, name, tag):
+        real = getattr(module, name)
+
+        def call(*args, **kwargs):
+            seen.append(tag)
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, call)
+
+    spy(BB, "chain_verify", "chain_verify")
+    spy(BB, "chain_verify_cached", "chain_verify_cached")
+    spy(B, "_verify_points_host", "host_tail")
+    (a0, i0, p0, r0), (a1, i1, p1, r1) = deferred
+    swapped = [(a0, i0.copy(signature=bytes(i1.signature)), p0, r0),
+               (a1, i1.copy(signature=bytes(i0.signature)), p1, r1)]
+    assert operations._verify_deferred_attestations(state, deferred, pspec, "cpu") is True
+    assert operations._verify_deferred_attestations(state, swapped, pspec, "cpu") is False
+    want = {"host_tail": "host_tail", "device_chain": "chain_verify",
+            "cached": "chain_verify_cached"}[route]
+    assert seen == [want, want]
 
 
 def test_cuda_and_cuda0_key_one_context(specs, jax_chain, monkeypatch):
@@ -345,10 +446,18 @@ def test_attester_slashing_matches(runs, jax_chain):
     assert got["cache_head_after_slashing"] == want["cache_head_after_slashing"]
 
 
-def test_drain_built_one_committee_cache_on_the_cpu(runs):
+def test_drain_took_the_body_its_constant_picks(runs, request):
+    """With the drain's threshold just above its eight attestations the
+    host body runs; with the threshold at 0 the cached body."""
+    _, got = runs
+    body = request.node.callspec.params["runs"]
+    assert got["bodies"] == [f"_attestation_batch_{body}"]
+
+
+def test_drain_built_one_committee_cache_on_the_cpu(cached_run):
     """The cached body really ran: one context for the drain's target, its
     committee cache built on the CPU over the chain's shared plane store."""
-    _, got = runs
+    _, got = cached_run
     ctxs = list(got["store"].attestation_contexts.values())
     assert len(ctxs) == 1
     cache = ctxs[0]._device_cache
@@ -465,15 +574,16 @@ def test_entry_points_resolve_the_card_first():
 
 
 @pytest.mark.cuda
-def test_drain_on_the_card(specs, jax_chain, runs):
-    """The same drain through the committee cache on the card."""
+def test_drain_on_the_card(specs, jax_chain, want, monkeypatch):
+    """The same drain through the committee cache on the card (the drain's
+    threshold at 0)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc; chip_smoke.py phase 3c drives the drain "
                     "on the card")
     from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
 
     jspec, pspec = specs
-    want, _ = runs
+    monkeypatch.setattr(*DRAIN_CONSTANT, 0)
     c = jax_chain
     genesis = convert.state_from_ssz(c["genesis"].encode(jspec), pspec)
     anchor = convert.container_from_ssz("BeaconBlock", c["anchor"].encode(jspec), pspec)

@@ -4,9 +4,11 @@ host oracle.
 ``verify_points``, ``batch_verify_each_points`` (bisection blame with one
 and two bad entries and with a ``None`` point) and ``batch_verify`` over
 bytes.  The port runs each check as a chained device verify on the CPU
-(the field kernels' plain versions) at 16-bit coefficients; the JAX
-package's verdicts come from its CPU route (below its device-chain size
-gate, the host RLC).  RLC coefficients are random, so verdicts are compared,
+(the field kernels' plain versions) at 16-bit coefficients, its size gate
+``DEVICE_CHAIN_MIN`` set to 0 so that these small sets take the device
+route (``tests/test_torch_size_routes.py`` holds the routes on both sides
+of the gate); the JAX package's verdicts come from its CPU route (below its
+device-chain size gate, the host RLC).  RLC coefficients are random, so verdicts are compared,
 not packed checks.  Tolerance: none, verdicts are exact.
 """
 
@@ -36,6 +38,14 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(params=[0], ids=["constant-0"])
+def chain_min(request, monkeypatch):
+    """The set gate's constant for a case: at 0 every set takes the chained
+    device route."""
+    monkeypatch.setattr(B, "DEVICE_CHAIN_MIN", request.param)
+    return request.param
+
+
 @pytest.fixture(scope="module")
 def memo():
     return {(m, DST_POP): hash_to_g2(m, DST_POP) for m in MSGS}
@@ -52,7 +62,7 @@ def _entries(memo, bad=()):
     return out
 
 
-def test_verify_points_matches_jax_and_host(memo):
+def test_verify_points_matches_jax_and_host(memo, chain_min):
     good, bad = _entries(memo), _entries(memo, bad=(2,))
     for entries, want in ((good, True), (bad, False)):
         got = B.verify_points(entries, message_points=dict(memo), device="cpu", coeff_bits=BITS)
@@ -79,7 +89,8 @@ def test_verify_points_matches_jax_and_host(memo):
     ],
     ids=["one-bad", "two-bad", "none-point"],
 )
-def test_batch_verify_each_points_blame_matches_jax(memo, monkeypatch, bad, none_at, levels):
+def test_batch_verify_each_points_blame_matches_jax(memo, monkeypatch, chain_min, bad, none_at,
+                                                     levels):
     entries = _entries(memo, bad)
     if none_at is not None:
         entries[none_at] = (None, entries[none_at][1], entries[none_at][2])
@@ -100,7 +111,7 @@ def test_batch_verify_each_points_blame_matches_jax(memo, monkeypatch, bad, none
     assert calls == levels
 
 
-def test_batch_verify_bytes_matches_jax():
+def test_batch_verify_bytes_matches_jax(chain_min):
     from lambda_ethereum_consensus_tpu.crypto import bls as jbls
 
     sks = [(secrets.randbelow(R - 1) + 1).to_bytes(32, "big") for _ in range(3)]
