@@ -104,16 +104,24 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    and the host body (every verdict None, the latest messages unchanged),
    and the cached body cold at 64; ``_verify_deferred_attestations`` over
    the first 8 to 128 aggregates of phase 3c's block through its three
-   routes.  A route that loses along its sweep (the card on the set, the
-   host on the drain and the block) stops once another route has been at
-   least as fast at two sizes in a row, and the sweep ends with it.  The
-   crossovers are printed beside the constants;
+   routes; (d) the pairing tail: ``check_tail`` over 1 to 256 checks of two
+   Miller outputs each (to 1,024 while the composed tail has won nowhere),
+   every eighth check false, through the hybrid tail (native final
+   exponentiation on the host) and the composed one (on the card), then
+   phase 4's drain, phase 6's 1,024-entry set on the device chain and
+   phase 3b's block import (its set on the device chain) each on its
+   default route and on the composed tail, verdicts equal, the composed
+   tail launching exactly ``bls_pairing.FINAL_EXP_LAUNCHES`` more field
+   kernels.  A route that loses along its sweep (the card on the set, the
+   host on the drain and the block, the hybrid tail) stops once another
+   route has been at least as fast at two sizes in a row, and the sweep
+   ends with it.  The crossovers are printed beside the constants;
 7. batch scalar multiplication: the mainnet KZG dev setup (4,096 host scalar
    multiplications, timed), ``batch_g1_mul`` on its 4,096 points with 255-bit
    scalars, ``batch_g2_mul`` on 1,024 points with 64-bit scalars (``k = 0``
    lanes included, 32-lane samples against the host), and
    ``pairing_products_are_one`` on 4 checks x 8 pairs against the host
-   ``pairing_check``;
+   ``pairing_check``, on its default tail and on the composed one;
 8. blob KZG at mainnet width: six seeded blobs committed and proved on the
    card, each commitment equal to ``[sum_i blob_i L_i(tau)] G1`` and one to
    the per-term host MSM, the 6-blob fold ``True``, and with one proof swapped
@@ -211,12 +219,13 @@ BLOCK_SLOTS, DRAIN_COPIES, SECOND_DRAIN, ORACLE_SAMPLE = 2, 2, 512, 64
 # per-proof oracle; a coalescer of COALESCE_THREADS threads x
 # COALESCE_REQUESTS requests of 1-4 proofs; a width-256 vector commitment
 # opened at VC_OPENED indices and a fold of VC_FOLD openings of VC_FOLD_WIDTH
-# indices each (one MSM of at most 2 x 64 + 256 = 384 lanes)
+# indices each (one MSM of at most 2 x 16 + 256 = 288 lanes; its inputs,
+# made on the host, take about a quarter of a second an opening)
 WITNESS_SHAPES = ((1024, 1), (768, 4), (256, 16))
 WITNESS_FIELDS = ("balances", "validators", "inactivity_scores",
                   "previous_epoch_participation", "current_epoch_participation")
 WITNESS_SAMPLE, COALESCE_THREADS, COALESCE_REQUESTS = 64, 32, 8
-VC_OPENED, VC_FOLD, VC_FOLD_WIDTH = 16, 64, 4
+VC_OPENED, VC_FOLD, VC_FOLD_WIDTH = 16, 16, 4
 # the size routes (after phase 6): each route timed warm, the median of
 # ROUTE_REPS runs, on sets of ROUTE_SET_SIZES entries tiled from phase 6's
 # duty entries (swept from the largest down), on the first ROUTE_DRAIN_SIZES
@@ -225,10 +234,20 @@ VC_OPENED, VC_FOLD, VC_FOLD_WIDTH = 16, 64, 4
 # 3c's block; a route that loses along its sweep (the card on the set, the
 # host on the drain and the block) stops once another route has been at
 # least as fast at ROUTE_STOP sizes in a row, and the sweep ends with it
-ROUTE_SET_SIZES = (16384, 8192, 4096, 2048, 1024, 128, 16, 1)
+ROUTE_SET_SIZES = (32768, 16384, 8192, 4096, 2048, 1024, 128, 16, 1)
 ROUTE_DRAIN_SIZES = (1, 4, 8, 16, 64, 128, 256, 512, 1024)
 ROUTE_BLOCK_SIZES = (8, 16, 32, 64, 128)
 ROUTE_REPS, ROUTE_COLD_DRAIN, ROUTE_STOP = 3, 64, 2
+# the pairing tail alone (size routes, part d): TAIL_SIZES checks of two
+# Miller outputs each, every TAIL_FALSE-th check false, through both tails up
+# to TAIL_SWEEP_END checks, and on to the last size while the composed tail
+# has won nowhere
+TAIL_SIZES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+TAIL_SWEEP_END, TAIL_FALSE = 256, 8
+# a blaming drain (size routes, part d): the first BLAME_DRAIN aggregates of
+# phase 4's drain with every BLAME_EVERY-th signature negated; its last
+# bisection level checks each of the BLAME_DRAIN aggregates alone
+BLAME_DRAIN, BLAME_EVERY = 128, 2
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -702,7 +721,17 @@ def bls_phase(dev, rng, record: dict) -> dict:
         device_busy_ms=busy_ms, tampered_drain_s=tamper_s, peak_mib=peak,
         hash_to_g2_s=hash_s,
     )
-    return launches[1], lambda: batch_verify_each_cached(cache, entries, message_points=message_points)
+    # the first BLAME_DRAIN aggregates with every BLAME_EVERY-th signature
+    # negated: a drain whose bisection reaches DEVICE_TAIL_MIN checks, for
+    # the tail part of the size routes
+    blame_want = [i % BLAME_EVERY != BLAME_EVERY - 1 for i in range(BLAME_DRAIN)]
+    forged = [(c, m, msg, sig if ok else C.g2.affine_neg(sig))
+              for ok, (c, m, msg, sig) in zip(blame_want, entries)]
+
+    def drain(batch):
+        return lambda: batch_verify_each_cached(cache, batch, message_points=message_points)
+
+    return launches[1], drain(entries), drain(forged), blame_want
 
 
 def _sync() -> None:
@@ -758,12 +787,42 @@ def _drain_gate(value: int):
     return _constant(FH, "DRAIN_DEVICE_MIN", value)
 
 
+def _on_device_chain(fn):
+    """``fn()`` with the set gate at 0."""
+    with _device_chain():
+        return fn()
+
+
 def _device_chain(value: int = 0):
     """The set gate (``crypto/bls/batch.DEVICE_CHAIN_MIN``) at ``value``:
     at 0 every set takes the chained device route."""
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
 
     return _constant(B, "DEVICE_CHAIN_MIN", value)
+
+
+def _device_tail(value: int = 0):
+    """The pairing tail's threshold (``ops/bls_pairing.DEVICE_TAIL_MIN``) at
+    ``value``: at 0 every chained call takes the composed tail, above its
+    number of checks the hybrid one."""
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
+
+    return _constant(BPair, "DEVICE_TAIL_MIN", value)
+
+
+def _tail_launch_gap(more: dict, fewer: dict, path: str, calls: int) -> int:
+    """Fail unless the run of ``path`` that launched ``more`` launched
+    exactly ``calls`` composed final exponentiations' field calls more than
+    the run that launched ``fewer`` (the two differ in the tail of ``calls``
+    chained calls); returns that gap."""
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
+
+    gap = {k: more[k] - fewer[k] for k in FQ_KERNELS}
+    want = {k: calls * BPair.FINAL_EXP_LAUNCHES[k] for k in FQ_KERNELS}
+    if gap != want:
+        raise AssertionError(f"{path}: one route launched {gap} more field kernels than the "
+                             f"other, not {want}")
+    return sum(gap.values())
 
 
 def _default_route(fn, on_device: bool, path: str):
@@ -856,6 +915,17 @@ def _primed(state, spec):
     out._root_engine.root(out, spec)
     out._root_engine.seconds.clear()
     return out
+
+
+def _forked(parent):
+    """A state equal to ``_primed`` output ``parent`` with a copy of its
+    engine: a block imported on it leaves ``parent`` primed, so one rooting
+    of the parent serves every import on it."""
+    from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+
+    ws = BeaconStateMut(parent)
+    ws._root_engine = parent._root_engine.copy()
+    return ws.freeze()
 
 
 @contextlib.contextmanager
@@ -1080,8 +1150,10 @@ def transition_phase(dev, rng, record: dict, state, spec):
         return state_transition(parent, block, validate_result=True, spec=spec, device=dev)
 
     # the import's signature set on the device chain (the set gate at 0), as
-    # phase 9's "block import" path runs it; the default route further down
-    parent = _primed(card, spec)
+    # phase 9's "block import" path runs it; the default route further down.
+    # The parent is rooted once; each import runs on a fork of it
+    primed = _primed(card, spec)
+    parent = _forked(primed)
     _zero_fq_launches()
     sops.sha256_kernel_launches = 0
     _sync()
@@ -1104,7 +1176,7 @@ def transition_phase(dev, rng, record: dict, state, spec):
     if bytes(imported.latest_block_header.body_root) != \
             signed.message.body.hash_tree_root(spec, backend=HashlibBackend()):
         raise AssertionError("the imported header does not carry the block's body")
-    parent = _primed(card, spec)
+    parent = _forked(primed)
     with _device_chain():
         wall, busy = _profiled(lambda: import_block(signed, parent))
 
@@ -1113,7 +1185,7 @@ def transition_phase(dev, rng, record: dict, state, spec):
     swapped[0] = swapped[0].copy(signature=bytes(swapped[1].signature))
     bad = duties.sign_block(pre_ws, signed.message.copy(body=body.copy(attestations=swapped)),
                             proposer_sk, spec)
-    parent = _primed(card, spec)
+    parent = _forked(primed)
     t0 = time.perf_counter()
     try:
         import_block(bad, parent)
@@ -1124,7 +1196,7 @@ def transition_phase(dev, rng, record: dict, state, spec):
     else:
         raise AssertionError("a block with a swapped attestation signature was imported")
     route = _block_route(members, len(atts))
-    parent = _primed(card, spec)
+    parent = _forked(primed)
     _, default_s, default_fq = _default_route(
         lambda: import_block(signed, parent), route != HOST_TAIL,
         "block import (default route)")
@@ -1174,15 +1246,24 @@ def transition_phase(dev, rng, record: dict, state, spec):
         rebuild_crossover=crossover, seconds=time.perf_counter() - t_phase,
     )
 
-    def import_path():
+    def on_device_backend(fn):
         prev = set_hash_backend(device_backend)
         try:
-            with _device_chain():
-                return import_block(signed, _primed(card, spec))
+            return fn()
         finally:
             set_hash_backend(prev)
 
-    return dict(import_path=import_path, start=start, start_sks=start_sks, sync_keys=sync_keys,
+    def prime():
+        return _forked(primed)
+
+    def import_primed(parent):
+        return on_device_backend(lambda: _on_device_chain(lambda: import_block(signed, parent)))
+
+    def import_path():
+        return import_primed(prime())
+
+    return dict(import_path=import_path, prime=prime, import_primed=import_primed,
+                start=start, start_sks=start_sks, sync_keys=sync_keys,
                 walk_end=walks["card"]["end"],
                 walk_root=walks["card"]["final_root"])
 
@@ -2197,14 +2278,16 @@ def sets_phase(dev, rng, record: dict, duty: dict) -> dict:
     return dict(entries=entries, memo=memo)
 
 
-def _median_run(fn, reps: int = ROUTE_REPS):
+def _median_run(fn, reps: int = ROUTE_REPS, setup=None):
     """(median wall seconds of ``reps`` runs of ``fn``, its result); every
-    run must return what the first did."""
+    run must return what the first did.  With ``setup``, each run times
+    ``fn(setup())`` without the ``setup()``."""
     times, results = [], []
     for _ in range(reps):
+        arg = () if setup is None else (setup(),)
         _sync()
         t0 = time.perf_counter()
-        results.append(fn())
+        results.append(fn(*arg))
         _sync()
         times.append(time.perf_counter() - t0)
     if any(r != results[0] for r in results):
@@ -2219,11 +2302,151 @@ def _crossover(rows: list, size: str, card: str, host: str):
     return min(won) if won else None
 
 
+def _bisection_widths(valid: list) -> list:
+    """The checks in each level of a level-synchronous bisection over
+    entries whose validity is ``valid``: a failed range of more than one
+    entry splits in half."""
+    widths, pending = [], [range(len(valid))] if valid else []
+    while pending:
+        widths.append(len(pending))
+        pending = [half for r in pending if len(r) > 1 and not all(valid[i] for i in r)
+                   for half in (r[:len(r) // 2], r[len(r) // 2:])]
+    return widths
+
+
 def _drain_verdicts(results) -> list:
     return [None if r is None else (str(r), r.reject) for r in results]
 
 
-def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict) -> None:
+def _tail_route(fn, tail_min: int, setup=None, reps: int = ROUTE_REPS):
+    """``fn`` run ``reps`` times with the tail's constant at ``tail_min``
+    (each on a fresh ``setup()``, untimed, where given): (median seconds,
+    result, field launches per run)."""
+    with _device_tail(tail_min):
+        _zero_fq_launches()
+        seconds, result = _median_run(fn, reps, setup)
+        launches = _launches()
+    if any(launches[k] % reps for k in FQ_KERNELS):
+        raise AssertionError(f"field launches {launches} differ between the {reps} runs")
+    return seconds, result, {k: launches[k] // reps for k in FQ_KERNELS}
+
+
+def _tail_planes(dev, n: int):
+    """Miller outputs ``(32, 2, 3, 2, n, 2)`` of ``n`` checks of two pairs:
+    ``(P_i, Q)`` with ``(-P_i, Q)``, and every TAIL_FALSE-th check ``(P_i,
+    Q)`` twice, so it is false."""
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
+
+    q = C.g2.multiply_raw(C.G2_GENERATOR, SEED)
+    pairs = []
+    for i in range(n):
+        pt = C.g1.multiply_raw(C.G1_GENERATOR, SEED + i)
+        pairs += [(pt, q), (pt if i % TAIL_FALSE == TAIL_FALSE - 1 else C.g1.affine_neg(pt), q)]
+    return BPair._miller_planes(pairs, dev).reshape(32, 2, 3, 2, n, 2)
+
+
+def tail_routes(dev, card: str, paths: dict, blame: tuple) -> dict:
+    """Size routes, part (d): the pairing tail.  First the tail alone:
+    ``check_tail`` over the Miller outputs of C checks (``_tail_planes``)
+    through the hybrid and the composed tail (the constant above C, then at
+    0), warm, the median of ROUTE_REPS runs, the verdicts of both equal to
+    the construction.  The sweep runs up from one check; the hybrid tail,
+    which loses along it, stops once the composed one has been at least as
+    fast at ROUTE_STOP sizes in a row, and the sweep ends at TAIL_SWEEP_END
+    once the composed tail has won anywhere (the outputs past it are built
+    only if it goes on).  Then each of ``paths`` (one chained call each) on
+    its default route and on the composed tail, the same way, verdicts
+    equal, and the launch gap between them held to the composed final
+    exponentiation's field calls.  A path is a callable, or ``(setup,
+    fn)``: then each run times ``fn(setup())`` without the setup.  Last
+    ``blame`` = (name, fn, verdicts, levels): a drain whose bisection has
+    ``levels`` levels of at least DEVICE_TAIL_MIN checks, once on its
+    default route and once on the hybrid tail throughout, its verdicts
+    equal to ``verdicts`` on both, the launch gap ``levels`` composed final
+    exponentiations."""
+    import torch
+
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
+
+    t_start = time.perf_counter()
+    miller = _tail_planes(dev, TAIL_SWEEP_END)
+    check_tail = BPair.get_pairing_ops(dev)["check_tail"]
+    rows, losses = [], 0
+    for n in TAIL_SIZES:
+        if losses >= ROUTE_STOP or (n > TAIL_SWEEP_END and any(
+                r["composed_s"] <= r["hybrid_s"] for r in rows)):
+            break
+        if n > miller.shape[4]:
+            miller = _tail_planes(dev, TAIL_SIZES[-1])
+        f, mask = miller[..., :n, :], torch.ones((n, 2), dtype=torch.bool, device=dev)
+        want = [i % TAIL_FALSE != TAIL_FALSE - 1 for i in range(n)]
+        row = {"checks": n}
+        row["hybrid_s"], hybrid, row["hybrid_launches"] = _tail_route(
+            lambda: check_tail(f, mask).cpu().tolist(), n + 1)
+        row["composed_s"], composed, row["composed_launches"] = _tail_route(
+            lambda: check_tail(f, mask).cpu().tolist(), 0)
+        if not hybrid == composed == want:
+            raise AssertionError(f"the tail at {n} checks: hybrid {hybrid}, composed {composed}")
+        row["gap"] = _tail_launch_gap(row["composed_launches"], row["hybrid_launches"],
+                                      f"the tail at {n} checks", 1)
+        losses = losses + 1 if row["composed_s"] <= row["hybrid_s"] else 0
+        rows.append(row)
+        print(f"size route, tail of {n} checks (check_tail, 2 pairs each): hybrid "
+              f"{row['hybrid_s']:.4f} s, composed {row['composed_s']:.4f} s ({row['gap']} more "
+              f"field launches); verdicts equal, {want.count(False)} false [{card}]")
+    out = dict(rows=rows, crossover=_crossover(rows, "checks", "composed_s", "hybrid_s"),
+               constant=BPair.DEVICE_TAIL_MIN)
+    del miller
+
+    # the three paths, one chained call each, on both tails
+    out["paths"] = {}
+    hybrid = 1 < BPair.DEVICE_TAIL_MIN  # the default tail of one check
+    for name, path in paths.items():
+        setup, fn = path if isinstance(path, tuple) else (None, path)
+        row = {}
+        row["default_s"], default, row["default_launches"] = _tail_route(
+            fn, BPair.DEVICE_TAIL_MIN, setup)
+        row["composed_s"], composed, row["composed_launches"] = _tail_route(fn, 0, setup)
+        if default != composed:
+            raise AssertionError(f"{name}: the default route said {default}, the composed tail "
+                                 f"{composed}")
+        row["gap"] = _tail_launch_gap(row["composed_launches"], row["default_launches"], name,
+                                      int(hybrid))
+        out["paths"][name] = row
+        print(f"tail of {name}: default route ({'hybrid' if hybrid else 'composed'}) "
+              f"{row['default_s']:.4f} s, {_total(row['default_launches'])} field launches; "
+              f"composed {row['composed_s']:.4f} s, {_total(row['composed_launches'])} (the gap "
+              f"{row['gap']} == the composed final exponentiation's); verdicts equal [{card}]")
+    out["sweep_and_paths_s"] = time.perf_counter() - t_start
+
+    # a drain blaming enough forged aggregates that a bisection level
+    # reaches the composed tail: its default route against the hybrid tail
+    # throughout, one run each
+    name, fn, want, levels = blame
+    t0 = time.perf_counter()
+    row = {"levels": levels}
+    row["default_s"], default, row["default_launches"] = _tail_route(
+        fn, BPair.DEVICE_TAIL_MIN, reps=1)
+    row["hybrid_s"], hybrid_flags, row["hybrid_launches"] = _tail_route(
+        fn, len(want) + 1, reps=1)
+    if not default == hybrid_flags == want:
+        raise AssertionError(f"{name}: the default route blamed "
+                             f"{[i for i, ok in enumerate(default) if not ok]}, the hybrid tail "
+                             f"{[i for i, ok in enumerate(hybrid_flags) if not ok]}")
+    row["gap"] = _tail_launch_gap(row["default_launches"], row["hybrid_launches"], name, levels)
+    row["seconds"] = time.perf_counter() - t0
+    out["blame"] = {name: row}
+    print(f"tail of {name}: default route ({levels} level(s) on the composed tail) "
+          f"{row['default_s']:.4f} s, {_total(row['default_launches'])} field launches; hybrid "
+          f"tail throughout {row['hybrid_s']:.4f} s, {_total(row['hybrid_launches'])} (the gap "
+          f"{row['gap']} == {levels} composed final exponentiation(s)); one run each, "
+          f"{want.count(False)} blamed on both [{card}]")
+    return out
+
+
+def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict,
+                      tail_paths: dict, blame: tuple) -> None:
     """The size routes: each route of the three size gates timed warm
     (median of ROUTE_REPS runs) on either side of where it crosses, every
     route's verdicts equal.  (a) a signature set through ``verify_points``
@@ -2233,7 +2456,10 @@ def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict
     and the host body (every verdict None, the latest messages unchanged),
     and the cached body cold once; (c) ``_verify_deferred_attestations``
     over the first k aggregates of phase 3c's block through its three
-    routes.  Each route is forced through the constants and restored; a
+    routes; (d) the pairing tail (``tail_routes``) alone, on ``tail_paths``
+    and on the blaming drain ``blame`` = (name, fn, verdicts), its levels
+    of at least DEVICE_TAIL_MIN checks counted from the verdicts.  Each
+    route is forced through the constants and restored; a
     route stops once another has been at least as fast at ROUTE_STOP sizes
     in a row, and a sweep ends when its host side has stopped.
     Every row is printed beside the card's name and power limit, the
@@ -2241,6 +2467,7 @@ def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict
     from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
     from lambda_ethereum_consensus_tpu_torch.fork_choice import attestation as FA
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
     from lambda_ethereum_consensus_tpu_torch.state_transition import operations
 
     t_phase = time.perf_counter()
@@ -2348,6 +2575,18 @@ def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict
                         constant=operations.BLOCK_BATCH_MIN_MEMBERS)
     FA._STATE_CTX.clear()
 
+    # ---- (d) the pairing tail, alone and on three paths
+    t0 = time.perf_counter()
+    name, fn, want = blame
+    levels = sum(w >= BPair.DEVICE_TAIL_MIN for w in _bisection_widths(want))
+    out["tail"] = tail_routes(dev, card, {
+        **tail_paths,
+        f"the set of {len(entries)} entries (verify_points, device chain)":
+            lambda: _on_device_chain(lambda: B.verify_points(entries, message_points=memo,
+                                                              device=dev)),
+    }, (name, fn, want, levels))
+    out["tail"]["seconds"] = time.perf_counter() - t0
+
     out["seconds"] = time.perf_counter() - t_phase
     record["size_routes"] = out
     print(f"size-route crossovers (the card's median at or below the host's): set "
@@ -2355,7 +2594,11 @@ def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict
           f"{out['drain']['crossover']} aggregates (DRAIN_DEVICE_MIN, attestation_batch_target() "
           f"{FC.attestation_batch_target()}), block {out['block']['crossover_members']} members "
           f"against the host sums the set gate picks (BLOCK_BATCH_MIN_MEMBERS "
-          f"{operations.BLOCK_BATCH_MIN_MEMBERS}); phase {out['seconds']:.1f} s [{card}]")
+          f"{operations.BLOCK_BATCH_MIN_MEMBERS}), tail {out['tail']['crossover']} checks "
+          f"(DEVICE_TAIL_MIN {BPair.DEVICE_TAIL_MIN}; the tail part "
+          f"{out['tail']['seconds']:.1f} s: the sweep and three paths "
+          f"{out['tail']['sweep_and_paths_s']:.1f} s, the blaming drain "
+          f"{out['tail']['blame'][name]['seconds']:.1f} s); phase {out['seconds']:.1f} s [{card}]")
 
 
 def kzg_setup(record: dict):
@@ -2415,16 +2658,27 @@ def mul_phase(dev, rng, record: dict, duty: dict, setup) -> None:
         expect.append(c % 2 == 0)
     got, pair_s, pair_launches = _counted(lambda: BPair.pairing_products_are_one(checks, dev),
                                           "pairing_products_are_one")
+    with _device_tail():
+        composed, composed_s, composed_launches = _counted(
+            lambda: BPair.pairing_products_are_one(checks, dev),
+            "pairing_products_are_one (composed tail)")
+    gap = _tail_launch_gap(composed_launches, pair_launches, "pairing_products_are_one",
+                           int(PAIR_CHECKS < BPair.DEVICE_TAIL_MIN))
     t0 = time.perf_counter()
     host = [pairing_check(c) for c in checks]
     host_s = time.perf_counter() - t0
-    if not got == host == expect:
-        raise AssertionError(f"pairing_products_are_one {got}, host {host}, expected {expect}")
+    if not got == composed == host == expect:
+        raise AssertionError(f"pairing_products_are_one {got}, on the composed tail {composed}, "
+                             f"host {host}, expected {expect}")
     peak = _peak_mib()
+    tail = "hybrid" if PAIR_CHECKS < BPair.DEVICE_TAIL_MIN else "composed"
     print(f"pairing_products_are_one: {PAIR_CHECKS} checks x {PAIRS_PER_CHECK} pairs {got} == host "
-          f"pairing_check ({host_s:.2f} s on the host) in {pair_s:.3f} s, "
-          f"{_total(pair_launches)} field launches; peak device memory {peak:.0f} MiB")
+          f"pairing_check ({host_s:.2f} s on the host) in {pair_s:.3f} s on its default tail "
+          f"({tail}), {_total(pair_launches)} field launches; on the composed tail "
+          f"{composed_s:.3f} s, {gap} field launches more; peak device memory {peak:.0f} MiB")
     record["mul"] = dict(runs, pairing_s=pair_s, pairing_launches=pair_launches,
+                         pairing_composed_s=composed_s,
+                         pairing_composed_launches=composed_launches,
                          pairing_host_s=host_s, peak_mib=peak)
 
 
@@ -2863,7 +3117,7 @@ def main() -> int:
 
     # ---- phase 4: the signature leg — the attestation drain on the card
     t0 = time.perf_counter()
-    fq_launches, drain = bls_phase(dev, rng, record)
+    fq_launches, drain, blame_drain, blame_want = bls_phase(dev, rng, record)
     print(f"BLS phase {time.perf_counter() - t0:.1f} s")
 
     # ---- phases 5-8: duty signing, signature sets, scalar multiplication, KZG
@@ -2873,7 +3127,13 @@ def main() -> int:
     t0 = time.perf_counter()
     sets = sets_phase(dev, rng, record, duty)
     print(f"signature-set phase {time.perf_counter() - t0:.1f} s")
-    size_routes_phase(dev, record, card, spec, sets, node_routes)
+    size_routes_phase(dev, record, card, spec, sets, node_routes, {
+        f"the drain of {record['bls']['aggregates']} aggregates (batch_verify_each_cached)": drain,
+        "the block import (its set on the device chain; on a fork of the rooted parent, made "
+        "untimed)": (transition["prime"],
+                     lambda parent: transition["import_primed"](parent) is not None),
+    }, (f"the drain of {BLAME_DRAIN} aggregates, {blame_want.count(False)} forged "
+        f"(batch_verify_each_cached)", blame_drain, blame_want))
     del sets, node_routes
     t0 = time.perf_counter()
     setup = kzg_setup(record)

@@ -14,8 +14,9 @@ grouped by distinct message.
 
 The route is decided by size alone, before anything launches (the JAX
 package's ``BLS_DEVICE_CHAIN_MIN`` gate, here the module constant
-:data:`DEVICE_CHAIN_MIN`).  A set of at least that many entries runs whole
-on the device as one chained check (:func:`..ops.bls_batch.chain_verify`);
+:data:`DEVICE_CHAIN_MIN`).  A set of at least that many entries runs on
+the device as one chained check (:func:`..ops.bls_batch.chain_verify`, whose
+pairing tail has its own size route);
 a smaller one runs on the host tail, :func:`_verify_points_host` (the native
 C++ RLC check, else pure Python).  Either way the device is resolved first,
 so ``device=None`` raises without a card at every size.  A failed range is
@@ -60,12 +61,13 @@ __all__ = [
 PointEntry = tuple
 
 # entries from which a signature set's check runs on the device; below it
-# the host tail answers.  On an H100 the card's chain did not beat the
-# native host tail up to 16,384 entries (PERF.md, the median of three runs:
-# 2.05 against 1.72 s there, 1.66 against 0.91 s at 8,192), so the gate
-# sits just above the largest size measured.  The JAX package's
+# the host tail answers.  The smallest set at which the card's chain, on
+# its hybrid pairing tail, was at or below the native host tail on an H100
+# (PERF.md, the median of six runs: 1.76 against 1.80 s at 16,384 entries,
+# a near tie, 1.53 against 0.99 s at 8,192; two runs at 32,768: 1.99
+# against 3.38 s).  The JAX package's
 # BLS_DEVICE_CHAIN_MIN default, 128, was tuned to a TPU's dispatch cost.
-DEVICE_CHAIN_MIN = 16385
+DEVICE_CHAIN_MIN = 16384
 
 
 def device_chain_threshold() -> int:

@@ -5,8 +5,10 @@ library is ``native/bls381/bls381.cpp``, built at first use by
 :func:`..ops._build.build_host` into the port's ``_build/`` (never into
 ``native/build/``).  It accelerates the host's hot operations: pairing
 product checks, G1/G2 scalar multiplication, Fq exponentiation, batched
-hash-to-G2, batched point decompression with the subgroup check, and the
-whole RLC batch check.  The pure-Python modules stay as the oracle.
+hash-to-G2, batched point decompression with the subgroup check, the
+whole RLC batch check, and the final exponentiation with the identity test
+over a batch of Fq12 values (the hybrid pairing tail of
+:mod:`...ops.bls_pairing`).  The pure-Python modules stay as the oracle.
 
 The library is used only after a differential self-check against the
 pure-Python path (:func:`load`).  A failed build, load or self-check raises
@@ -14,8 +16,8 @@ pure-Python path (:func:`load`).  A failed build, load or self-check raises
 (the JAX package's switch) selects the pure-Python path everywhere.
 Nothing is built or loaded at import.
 
-Boundary format: big-endian 48-byte field elements, affine ``x||y`` points.
-``final_exp_is_one`` (the JAX package's hybrid ``BLS_TAIL``) is not bound.
+Boundary format: big-endian 48-byte field elements, affine ``x||y`` points,
+Fq12 values as their 12 base-field coefficients in tower order.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ __all__ = [
     "Library",
     "NativeError",
     "enabled",
+    "final_exp_is_one",
     "g1_decompress_batch",
     "g1_mul",
     "g2_decompress_batch",
@@ -138,6 +141,12 @@ class Library:
             c.c_size_t,                  # n_groups
             c.c_int,                     # nthreads (0 = auto)
         ]
+        cdll.bls381_final_exp_is_one.restype = c.c_int
+        cdll.bls381_final_exp_is_one.argtypes = [
+            c.c_char_p,                  # fq12s: n * 576
+            c.c_size_t,                  # n
+            c.c_char_p,                  # out: one verdict byte each
+        ]
         for name in ("bls381_g1_decompress_batch", "bls381_g2_decompress_batch"):
             fn = getattr(cdll, name)
             fn.restype = None
@@ -193,6 +202,19 @@ class Library:
         raw = out.raw  # one copy: .raw copies the whole buffer on every access
         return [_g2_from(raw[i * 192 : (i + 1) * 192]) for i in range(n)]
 
+    def final_exp_is_one(self, fq12s) -> list[bool]:
+        """Whether the final exponentiation of each host Fq12 ``((c0, c1,
+        c2), (c0, c1, c2))`` of Fq2 pairs is one: a serial loop in C++."""
+        n = len(fq12s)
+        if n == 0:
+            return []
+        buf = b"".join(c.to_bytes(48, "big") for f in fq12s for c6 in f for c2 in c6 for c in c2)
+        out = ctypes.create_string_buffer(n)
+        rc = self._lib.bls381_final_exp_is_one(buf, n, out)
+        if rc != 0:
+            raise NativeError(f"bls381_final_exp_is_one returned {rc}")
+        return [b == 1 for b in out.raw]
+
     def _decompress(self, fn, insz: int, outsz: int, from_bytes, blobs, subgroup_check: bool):
         # per-item contract: a wrong-length blob is that item's invalidity
         # (False), as on the pure-Python path
@@ -247,12 +269,13 @@ class Library:
 
 def _self_check(lib: Library) -> None:
     """Every entry point against the pure-Python path on fixed inputs (the
-    RLC check on a valid and a tampered set); raises :class:`NativeError` on
-    the first disagreement."""
+    RLC check on a valid and a tampered set, the final exponentiation of a
+    Miller product that pairs to one and of one that does not); raises
+    :class:`NativeError` on the first disagreement."""
     from . import curve as C
-    from .fields import P
+    from .fields import P, fq12_is_one, fq12_mul
     from .hash_to_curve import DST_POP, hash_to_g2
-    from .pairing import pairing_check
+    from .pairing import final_exponentiation, miller_loop, pairing_check
 
     def expect(ok: bool, what: str) -> None:
         if not ok:
@@ -282,6 +305,11 @@ def _self_check(lib: Library) -> None:
         expect(lib.rlc_verify(good, [h], [0], 64), "rlc_verify of a valid set")
         bad = [(p1, C.g2.multiply_raw(h, a + 1), 5)]
         expect(not lib.rlc_verify(bad, [h], [0], 64), "rlc_verify of a tampered set")
+        f = miller_loop(p1, q1)
+        products = [fq12_mul(f, miller_loop(C.g1.affine_neg(p1), q1)), fq12_mul(f, f)]
+        want = [fq12_is_one(final_exponentiation(m)) for m in products]
+        expect(want == [True, False] and lib.final_exp_is_one(products) == want,
+               "final_exp_is_one")
 
 
 def load(path=None) -> Library:
@@ -328,6 +356,10 @@ def fp_powmod(base: int, exp: int) -> int:
 
 def hash_to_g2_batch(msgs: list[bytes], dst: bytes) -> list:
     return library().hash_to_g2_batch(msgs, dst)
+
+
+def final_exp_is_one(fq12s) -> list[bool]:
+    return library().final_exp_is_one(fq12s)
 
 
 def g1_decompress_batch(blobs, subgroup_check: bool = True) -> list:

@@ -178,8 +178,9 @@ def compute_pulled_up_tip(store: Store, block_root: bytes, state, spec: ChainSpe
 
 # attestations from which on_attestation_batch takes the cached device body;
 # below it the host body.  The smallest drain at which the cached body was at
-# or below the host body on an H100 (PERF.md, the median of the runs: 1.62
-# against 1.99 s at 8 aggregates, 1.48 against 1.32 s at 4).  The JAX
+# or below the host body on an H100 (PERF.md, the median of six runs on
+# the hybrid pairing tail: 1.36 against 2.62 s at 8 aggregates, 1.34
+# against 1.30 s at 4).  The JAX
 # package reads its set gate here; on the card the drain and the set cross
 # three orders of magnitude apart.
 DRAIN_DEVICE_MIN = 8

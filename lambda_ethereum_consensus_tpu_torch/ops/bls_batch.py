@@ -1,4 +1,4 @@
-"""Chained device RLC batch verification (the whole check on the device).
+"""Chained device RLC batch verification (one chain of device stages per call).
 
 The port's counterpart of the JAX package's ``ops/bls_batch.py``
 (single-device parts).  The host packs limb planes once and pulls back one
@@ -9,10 +9,15 @@ boolean per check:
     -> Jacobian tree reductions (group pk sums, per-check sig sum)
     -> batched Fermat normalization (Jacobian -> affine, no host inversion)
     -> Miller loop over (check, group+1) pairs    [ops/bls_pairing]
-    -> masked per-check product, shared final exponentiation, == 1
+    -> masked per-check product
+    -> final exponentiation, == 1                 [the pairing tail]
 
-Every field operation of the chain is a call of one of the three field
-kernels (:mod:`.bigint_pallas`).  Grouping by message, infinity masking and
+The tail is :mod:`.bls_pairing`'s ``check_tail``: below its
+``DEVICE_TAIL_MIN`` checks the masked products come to the host in one copy
+and the native library finishes them (the hybrid tail), from it on the
+final exponentiation runs on the device too (the composed tail).  Every
+field operation on the device is a call of one of the three field kernels
+(:mod:`.bigint_pallas`).  Grouping by message, infinity masking and
 dead-slot padding are the reference's: a group or signature sum that reduces
 to infinity contributes e(inf, Q) = 1, realised by masking its Miller slot to
 the Fq12 identity.  Tree reductions are the reference's pairwise halving
@@ -286,8 +291,9 @@ def chain_verify(
 
 def _run_checks_tail(ops, jac1, jac2, checks, dead: int) -> list[bool]:
     """The shared back half of every chained verify: gather the laddered
-    entries into (check, group, slot) rectangles, reduce, Miller, final
-    exp — one boolean per check pulled back.  ``checks`` supplies only the
+    entries into (check, group, slot) rectangles, reduce, Miller, and the
+    pairing tail (hybrid or composed by the number of checks) — one boolean
+    per check.  ``checks`` supplies only the
     layout (entry counts, h_points, group_ids)."""
     t = ops["tensor"]
     n_checks = len(checks)

@@ -1,11 +1,23 @@
 """Batched BLS12-381 optimal-ate pairing over limb planes (PyTorch).
 
 The port's counterpart of the JAX package's ``ops/bls_pairing.py`` plane
-instantiation, in its all-device form: the Miller loop, the masked product
-over the grouping axis, the final exponentiation and the identity test, all
-on the operands' device, one boolean per check coming back
-(:func:`make_pairing_ops` ``check_tail``; the reference's composed tail,
-``bls_pairing.py:396``).
+instantiation: the Miller loop and the masked product over the grouping axis
+on the operands' device, then one of two tails, one boolean per check coming
+back (:func:`make_pairing_ops` ``check_tail``):
+
+- the hybrid tail (the reference's ``_tail_hybrid``, ``bls_pairing.py:356``):
+  the masked products pulled to the host in one copy, the final
+  exponentiation and identity test in the native library's
+  ``final_exp_is_one`` (pure Python where :func:`..crypto.bls.native.enabled`
+  is off);
+- the composed tail (the reference's composed mode, ``bls_pairing.py:396``):
+  the final exponentiation and identity test on the device too, about 2,900
+  field-kernel calls whatever the number of checks.
+
+The tail is chosen by the number of checks alone, before anything launches:
+below :data:`DEVICE_TAIL_MIN` the hybrid tail, from it on the composed one,
+on every device.  Neither falls back to the other: a native build, load or
+self-check failure raises ``NativeError``, a kernel fault ``RuntimeError``.
 
 Same line-slot convention and formulas as the reference: the line through
 the running twist point, evaluated at P = (px, py) and scaled by xi, lives at
@@ -28,17 +40,23 @@ unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from ..crypto.bls import native
 from ..crypto.bls.curve import G1_GENERATOR, G2_GENERATOR
-from ..crypto.bls.fields import BLS_X, BLS_X_IS_NEG
+from ..crypto.bls.fields import BLS_X, BLS_X_IS_NEG, fq12_is_one
+from ..crypto.bls.pairing import final_exponentiation
 from . import bls_fq12 as FQ
 from .bls_g1 import _limbs_batch, _planes
 from .ladder import _many
 from .sha256 import resolve_device
 
 __all__ = [
+    "DEVICE_TAIL_MIN",
+    "FINAL_EXP_LAUNCHES",
     "get_pairing_ops",
     "make_pairing_ops",
     "miller_loop_batch",
@@ -53,6 +71,34 @@ _X_BITS = [int(b) for b in bin(BLS_X)[3:]]
 # The Miller loop and pow_x conjugate unconditionally for the negative BLS
 # parameter (the host path branches on the flag).
 assert BLS_X_IS_NEG, "device pairing assumes the negative BLS12-381 parameter"
+
+# checks from which a batch's tail runs on the device (the composed tail);
+# below it the hybrid tail finishes on the host.  The smallest batch at
+# which the composed tail was at or below the hybrid on an H100 (PERF.md,
+# the median of six runs: 0.37 against 0.43 s at 128 checks, 0.38
+# against 0.22 s at 64).  The host's final exponentiation is a serial loop
+# of ~3.7 ms a check; the composed tail ~0.3-0.5 s at any number of checks.
+# Every caller in the port passes one or a few checks a call, except a
+# bisection level, which passes two for each range that failed above it:
+# only a drain or set blaming at least 64 forged items reaches 128.
+DEVICE_TAIL_MIN = 128
+
+# field-kernel launches of the composed tail's final exponentiation, the
+# same at any number of checks: what the hybrid tail saves a call
+FINAL_EXP_LAUNCHES = {"mul_mod": 743, "add_mod": 1771, "sub_mod": 379}
+
+
+def _tail_hybrid(products: torch.Tensor) -> torch.Tensor:
+    """Masked products ``(32, 2, 3, 2, batch...)`` on any device -> a CPU
+    bool tensor of the batch shape: one copy to the host, then the final
+    exponentiation and identity test of each product in the native library
+    (pure Python where native is off)."""
+    values = FQ.fq12_batch_from_limbs(products.cpu().numpy())
+    if native.enabled():
+        ok = native.final_exp_is_one(values)
+    else:
+        ok = [fq12_is_one(final_exponentiation(v)) for v in values]
+    return torch.tensor(ok, dtype=torch.bool).reshape(products.shape[4:])
 
 
 def make_pairing_ops(device: torch.device) -> dict:
@@ -165,11 +211,16 @@ def make_pairing_ops(device: torch.device) -> dict:
 
     def check_tail(f, mask):
         """Miller outputs grouped ``(..., K)`` + live mask -> one bool per
-        group: the masked product, final exponentiation and == 1, all on
-        the device."""
-        return ops["fq12_is_one"](final_exp(masked_product(f, mask)))
+        group: the masked product on the device, then the final
+        exponentiation and == 1 on the host below :data:`DEVICE_TAIL_MIN`
+        groups (a CPU tensor), on the device from it on."""
+        product = masked_product(f, mask)
+        if math.prod(mask.shape[:-1]) < DEVICE_TAIL_MIN:
+            return _tail_hybrid(product)
+        return ops["fq12_is_one"](pairing["final_exp"](product))
 
-    return {"miller": miller, "check_tail": check_tail}
+    pairing = {"miller": miller, "check_tail": check_tail, "final_exp": final_exp}
+    return pairing
 
 
 _OPS: dict = {}
@@ -229,8 +280,8 @@ def pairing_product_is_one(pairs, device: str | torch.device | None = None) -> b
 
 def pairing_products_are_one(checks, device: str | torch.device | None = None) -> list[bool]:
     """Batched pairing-product checks, one bool per inner pair list: the
-    Miller loops, masked products, final exponentiation and identity test
-    all on ``device`` (default: the card)."""
+    Miller loops and masked products on ``device`` (default: the card),
+    then the tail ``check_tail`` picks by the padded number of checks."""
     dev = resolve_device(device)
     if not checks:
         return []

@@ -209,6 +209,27 @@ class IncrementalStateRoot:
         self._top_levels = levels
         return _cap_root(levels, len(schema))
 
+    def copy(self) -> "IncrementalStateRoot":
+        """A second engine at the state this one last rooted, for a second
+        lineage from it (two blocks imported on one parent): every retained
+        row is copied, so neither engine's updates reach the other; the
+        element snapshots are copied as lists of the same elements, and the
+        delta stamps point at the same source lists."""
+        out = IncrementalStateRoot(self.cls, self.backend)
+        out._spec_name = self._spec_name
+        if self._top_levels is not None:
+            out._top_levels = [lvl.copy() for lvl in self._top_levels]
+        for fname, cache in self._fields.items():
+            c = out._fields[fname] = _FieldCache(cache.strategy)
+            if cache.levels is not None:
+                c.levels = [lvl.copy() for lvl in cache.levels]
+            if cache.chunks is not None:
+                c.chunks = c.levels[0]
+            c.prev = None if cache.prev is None else list(cache.prev)
+            c.count, c.root = cache.count, cache.root
+            c.last_list, c.stamp_gen = cache.last_list, cache.stamp_gen
+        return out
+
     # ---- witness-plane accessors: every Merkle level is already resident
     # per big field, so a multiproof planner can read arbitrary interior
     # nodes without rebuilding any part of the tree.

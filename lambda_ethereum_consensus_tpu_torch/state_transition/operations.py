@@ -277,10 +277,10 @@ def process_attestation(
 # attesting members from which a block's signatures are checked through the
 # epoch committee cache; below it, host sums through verify_points.  The
 # members of the smallest block at which the cache was at or below host sums
-# on the host tail on an H100 (PERF.md, the median of three runs: 1.92
-# against 2.56 s at 64 aggregates and 29,504 members, 2.04 against 1.68 s at
-# 32 and 14,756); the JAX package's BLS_BLOCK_BATCH_MIN_MEMBERS default is
-# 4,096.
+# on the host tail on an H100 (PERF.md, the median of six runs on the
+# hybrid pairing tail: 1.60 against 3.02 s at 64 aggregates and 29,504
+# members, 1.43 against 1.40 s at 32 and 14,756); the JAX package's
+# BLS_BLOCK_BATCH_MIN_MEMBERS default is 4,096.
 BLOCK_BATCH_MIN_MEMBERS = 29504
 
 

@@ -5,7 +5,8 @@ the host oracle.
 over an 8-committee x 8-member registry, against the JAX package's verdicts
 (its interpret-mode chain, run once here) and the host sums; and the
 attestation drain, ``batch_verify_each_cached``, blaming exactly the tampered
-entry.  RLC coefficients are 16 bits wide to keep the ladders short; every
+entry.  The parity cases run on both pairing tails (``DEVICE_TAIL_MIN`` at 0:
+composed; at 64: hybrid), the blame on the composed one.  RLC coefficients are 16 bits wide to keep the ladders short; every
 field op runs through the kernels' plain versions on the CPU.
 """
 
@@ -21,6 +22,7 @@ from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as HB
 from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
 from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import DST_POP, hash_to_g2
 from lambda_ethereum_consensus_tpu_torch.ops import bls_batch as BB
+from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
 from lambda_ethereum_consensus_tpu_torch.ops.bigint_pallas import from_planes
 
 MSGS = [b"chain-msg-a", b"chain-msg-b", b"chain-msg-c"]
@@ -58,7 +60,14 @@ def _mk_check(hs, n, n_msgs, bad_index=None):
     return (entries, hs[:n_msgs], gids)
 
 
-def test_chain_verify_valid_invalid_empty(hs):
+# the pairing tail's constant: at 0 every chained call takes the composed
+# tail, at 64 these calls of at most 4 checks the hybrid one
+TAIL_MIN = {"composed": 0, "hybrid": 64}
+
+
+@pytest.mark.parametrize("tail", list(TAIL_MIN))
+def test_chain_verify_valid_invalid_empty(hs, monkeypatch, tail):
+    monkeypatch.setattr(BPair, "DEVICE_TAIL_MIN", TAIL_MIN[tail])
     res = BB.chain_verify(
         [
             _mk_check(hs, n=4, n_msgs=2),
@@ -88,7 +97,7 @@ def _sig(hs, committees, comm, missing, g, corrupt=False):
     return C.g2.multiply_raw(hs[g], sk + (1 if corrupt else 0))
 
 
-def test_chain_verify_cached_matches_jax_and_host(hs, registry):
+def test_chain_verify_cached_matches_jax_and_host(hs, registry, monkeypatch):
     reg, rx, ry, committees = registry
     lengths = [8] * 7 + [5]  # committee 7 is ragged
     port = BB.DeviceCommitteeCache(
@@ -119,12 +128,14 @@ def test_chain_verify_cached_matches_jax_and_host(hs, registry):
     )
     miss = [int(committees[5][3])]
     invalid = ([(5, miss, _sig(hs, committees, 5, miss, 0, corrupt=True), _coeff())], hs[:1], [0])
-    got = BB.chain_verify_cached(port, [valid, invalid], coeff_bits=BITS)
     ref = JBB.DeviceCommitteeCache(
         (rx, ry), committees, interpret=True, chunk=4, lengths=lengths, mmax=4
     )
     want = JBB.chain_verify_cached(ref, [valid, invalid], interpret=True, coeff_bits=BITS)
-    assert got == want == [True, False]
+    assert want == [True, False]
+    for tail in TAIL_MIN.values():
+        monkeypatch.setattr(BPair, "DEVICE_TAIL_MIN", tail)
+        assert BB.chain_verify_cached(port, [valid, invalid], coeff_bits=BITS) == want
 
     # over-capacity corrections are refused, not truncated
     with pytest.raises(ValueError):
@@ -134,6 +145,7 @@ def test_chain_verify_cached_matches_jax_and_host(hs, registry):
 
 
 def test_batch_verify_each_cached_blames_the_tampered_entry(hs, registry, monkeypatch):
+    monkeypatch.setattr(BPair, "DEVICE_TAIL_MIN", TAIL_MIN["composed"])
     _, rx, ry, committees = registry
     cache = BB.DeviceCommitteeCache((rx, ry), committees, device="cpu", chunk=8, mmax=2)
     bad = 2

@@ -4,7 +4,9 @@ Each stage gets the same seeded inputs in both packages (numpy limb planes,
 moved into the port with ``convert.planes_to_torch``): the tower ops, Fermat
 inversion and Frobenius; the G1 and G2 ladders at 8 bits; the committee
 cache's sums and corrected aggregates; the Miller loop for two pairs; and the
-verdicts of the all-device tail.  The JAX side is
+verdicts of both pairing tails (the composed tail on the device, the hybrid
+tail's native and pure-Python host halves), with the composed final
+exponentiation's field calls pinned.  The JAX side is
 ``get_fq12_plane_ops(interpret=True)``, ``bls_batch._get_chain_ops(True)``
 (eager ladders over the plane fields) and
 ``bls_pairing._get_ops(plane=True, interpret=True)``.  Host oracles
@@ -12,7 +14,9 @@ verdicts of the all-device tail.  The JAX side is
 through the field kernels' plain versions.
 """
 
+import contextlib
 import random
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -255,14 +259,53 @@ def test_miller_matches_jax_and_host(miller_pair):
         assert JP.final_exponentiation(f) == JP.final_exponentiation(JP.miller_loop(p, q))
 
 
-def test_check_tail_verdicts_match_jax(miller_pair):
+@pytest.fixture(scope="module")
+def tail_inputs(miller_pair):
+    """Four checks of two Miller outputs each, in both packages, and the JAX
+    package's verdicts (its composed tail):
+    [e(Pt,Q) e(-Pt,Q)] -> 1; [e(Pt,Q) e(Pt,Q)] -> not 1;
+    [e(Pt,Q), masked] -> not 1; [masked, masked] -> 1."""
     _, port_f, ref_f = miller_pair
-    # checks: [e(Pt,Q) e(-Pt,Q)] -> 1; [e(Pt,Q) e(Pt,Q)] -> not 1;
-    # [e(Pt,Q), masked] -> not 1; [masked, masked] -> 1
     order = np.array([[0, 1], [0, 0], [0, 1], [0, 1]])
     mask = np.array([[True, True], [True, True], [True, False], [False, False]])
     port_in = port_f[..., torch.from_numpy(order.reshape(-1))].reshape(32, 2, 3, 2, 4, 2)
     ref_in = np.asarray(ref_f)[..., order.reshape(-1)].reshape(32, 2, 3, 2, 4, 2)
-    got = BPair.get_pairing_ops("cpu")["check_tail"](port_in, torch.from_numpy(mask))
     want = JBPair._get_ops(True, True)["check_tail"](_jnp(ref_in), _jnp(mask))
-    assert got.tolist() == [bool(v) for v in np.asarray(want)] == [True, False, False, True]
+    return port_in, torch.from_numpy(mask), [bool(v) for v in np.asarray(want)]
+
+
+# each tail forced through the constant: at 0 every batch takes the composed
+# tail, at 64 these 4 checks take the hybrid one (native, or pure Python)
+TAILS = {"composed": (0, False), "hybrid": (64, False), "hybrid-pure-python": (64, True)}
+
+
+@pytest.mark.parametrize("tail", list(TAILS))
+def test_check_tail_verdicts_match_jax(tail_inputs, monkeypatch, tail):
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import native
+
+    port_in, mask, want = tail_inputs
+    constant, pure = TAILS[tail]
+    monkeypatch.setattr(BPair, "DEVICE_TAIL_MIN", constant)
+    with native.pure_python() if pure else contextlib.nullcontext():
+        assert native.enabled() is not pure
+        got = BPair.get_pairing_ops("cpu")["check_tail"](port_in, mask)
+    assert got.device.type == "cpu" and got.dtype == torch.bool
+    assert got.tolist() == want == [True, False, False, True]
+
+
+@pytest.mark.parametrize("checks", [1, 4])
+def test_composed_final_exp_launches_are_pinned(miller_pair, monkeypatch, checks):
+    """The composed tail's final exponentiation makes the same field calls
+    at any number of checks: ``FINAL_EXP_LAUNCHES``, which ``chip_smoke.py``
+    holds the card's launch counts to (composed route minus default route)."""
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+
+    _, port_f, _ = miller_pair
+    calls = Counter()
+    for name, plain in list(BP._PLAIN.items()):
+        monkeypatch.setitem(BP._PLAIN, name,
+                            lambda a, b, name=name, plain=plain: calls.update([name]) or plain(a, b))
+    product = port_f[..., :1].expand(*port_f.shape[:4], checks)
+    out = BPair.get_pairing_ops("cpu")["final_exp"](product)
+    assert out.shape == product.shape
+    assert dict(calls) == BPair.FINAL_EXP_LAUNCHES

@@ -144,6 +144,37 @@ def test_pushed_deltas_survive_branched_lineage(state, specs, backend):
     _check(eng, ws_a, spec)
 
 
+def test_copied_engine_roots_a_second_lineage(state, specs, backend, monkeypatch):
+    """A copy of an engine that rooted a parent roots a second child of that
+    parent by its pushed deltas (no field rebuilt: the one ``_build_levels``
+    is the container's own) while the original roots the first; the updates
+    of neither reach the other."""
+    _, spec = specs
+    builds = []
+    real = inc._build_levels
+    monkeypatch.setattr(inc, "_build_levels", lambda *a: builds.append(1) or real(*a))
+    eng = inc.IncrementalStateRoot(BeaconState, backend)
+    parent = BeaconStateMut(state)
+    parent.balances[1] = 11 * 10**9
+    _check(eng, parent, spec)
+    parent = parent.freeze()
+    twin = eng.copy()
+    # the second child thaws a frozen copy of the parent, as an import on a
+    # fork of it does
+    ws_a, ws_b = BeaconStateMut(parent), BeaconStateMut(BeaconStateMut(parent).freeze())
+    ws_a.balances[3] = 77 * 10**7
+    ws_a.update_validator(2, slashed=True)
+    ws_b.balances[5] = 55 * 10**7
+    ws_b.block_roots[4] = b"\x66" * 32
+    _check(eng, ws_a, spec)
+    builds.clear()
+    _check(twin, ws_b, spec)
+    assert len(builds) == 1
+    assert twin.field_levels("balances")[0] is not eng.field_levels("balances")[0]
+    _check(twin.copy(), BeaconStateMut(ws_b.freeze()), spec)
+    _check(eng, ws_a, spec)
+
+
 def test_structural_mutations_degrade_safely(state, specs):
     _, spec = specs
     eng = inc.IncrementalStateRoot(BeaconState)

@@ -8,8 +8,9 @@ tests onto its native path: the JAX side here is pure Python).  Every hook
 is compared on the same seeded inputs: Fq exponentiation, G1/G2 scalar
 multiplication (0, 1, r and the point at infinity included), batched
 hash-to-G2, batched G1/G2 decompression (invalid, infinity and
-wrong-length items included), the RLC check on valid and tampered sets, and
-the pairing product check.  A library that fails to build, load or pass its
+wrong-length items included), the RLC check on valid and tampered sets,
+the pairing product check, and the batched final exponentiation of Miller
+products (the hybrid pairing tail's host half).  A library that fails to build, load or pass its
 self-check raises; ``BLS_DISABLE_NATIVE=1`` selects the pure-Python path.
 Tolerance: none, every value is exact.
 """
@@ -209,6 +210,28 @@ def test_pairing_check(lib, rng, pure):
             assert lib.pairing_check(live) is want
 
 
+def test_final_exp_is_one(lib, rng, pure):
+    """The library's batched final exponentiation against both packages'
+    pure-Python ones, on Miller products that pair to one and that do not."""
+    a = rng.randrange(1, R)
+    p, q = C.g1.multiply(C.G1_GENERATOR, a), C.g2.multiply(C.G2_GENERATOR, rng.randrange(1, R))
+    f = PR.miller_loop(p, q)
+    products = [
+        F.fq12_mul(f, PR.miller_loop(C.g1.affine_neg(p), q)),  # e(P,Q) e(-P,Q) == 1
+        F.fq12_mul(f, f),
+        f,
+        F.FQ12_ONE,
+        F.fq12_mul(PR.miller_loop(C.G1_GENERATOR, C.g2.multiply(q, a)),
+                   PR.miller_loop(C.g1.affine_neg(p), q)),  # e(g, aQ) e(-aG, Q) == 1
+    ]
+    want = [True, False, False, True, True]
+    assert [F.fq12_is_one(PR.final_exponentiation(m)) for m in products] == want
+    assert [JF.fq12_is_one(JP.final_exponentiation(m)) for m in products] == want
+    assert lib.final_exp_is_one(products) == want
+    assert native.final_exp_is_one(products) == want
+    assert lib.final_exp_is_one([]) == []
+
+
 def test_hooks_take_the_library_unless_disabled(lib, monkeypatch):
     """With native on, the hooks never reach the pure-Python bodies; with
     ``BLS_DISABLE_NATIVE=1`` they never reach the library."""
@@ -228,11 +251,16 @@ def test_hooks_take_the_library_unless_disabled(lib, monkeypatch):
     assert F._fq_powmod(3, 5) == 243
 
 
-def test_corrupt_self_check_raises(lib, monkeypatch):
-    real = native.Library.g1_mul
-    monkeypatch.setattr(native.Library, "g1_mul",
-                        lambda self, pt, k: real(self, pt, k + 1) if k > 1 else real(self, pt, k))
-    with pytest.raises(native.NativeError, match="g1_mul"):
+CORRUPT = {
+    "g1_mul": lambda real: lambda self, pt, k: real(self, pt, k + 1) if k > 1 else real(self, pt, k),
+    "final_exp_is_one": lambda real: lambda self, fs: [not v for v in real(self, fs)],
+}
+
+
+@pytest.mark.parametrize("entry", list(CORRUPT))
+def test_corrupt_self_check_raises(lib, monkeypatch, entry):
+    monkeypatch.setattr(native.Library, entry, CORRUPT[entry](getattr(native.Library, entry)))
+    with pytest.raises(native.NativeError, match=entry):
         native.load()
 
 

@@ -11,16 +11,28 @@ routes and holds the verdicts, and the blame, equal to the JAX package's on
 the same entries (its CPU route: the host RLC).  ``attestation_batch_target``
 (which reads the drain's own constant, ``fork_choice/handlers.py``
 ``DRAIN_DEVICE_MIN``) is held against the JAX package's, and ``device=None``
-must raise without a card on the host side of the gate too.  Tolerance:
-none, every check is exact.
+must raise without a card on the host side of the gate too.
+
+The pairing tail of every chained call routes by its number of checks
+(``ops/bls_pairing.py`` ``DEVICE_TAIL_MIN``): below it the hybrid tail (the
+native ``final_exp_is_one``), from it on the composed tail (the final
+exponentiation on the device, here the plain versions).  With the set gate
+at 0, ``verify_points`` (one check) runs each tail as the tail constant
+puts it on either side, and a bisection, through ``verify_points``' entries
+and through a committee cache, runs its first level (one check) on the
+hybrid tail and its later levels (two checks) on the composed one at a tail
+constant of 2; calls of both tails are counted, verdicts and blame held to
+the JAX package's.  Tolerance: none, every check is exact.
 """
 
 from collections import Counter
 
+import numpy as np
 import pytest
 import torch
 
 from lambda_ethereum_consensus_tpu.crypto.bls import batch as JB
+from lambda_ethereum_consensus_tpu.crypto.bls import pairing as JP
 from lambda_ethereum_consensus_tpu.fork_choice import handlers as jhandlers
 from lambda_ethereum_consensus_tpu_torch import fork_choice as pfc
 from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
@@ -29,6 +41,7 @@ from lambda_ethereum_consensus_tpu_torch.crypto.bls import native
 from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import DST_POP, hash_to_g2
 from lambda_ethereum_consensus_tpu_torch.fork_choice import handlers as phandlers
 from lambda_ethereum_consensus_tpu_torch.ops import bls_batch as BB
+from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
 
 GATE = 4
 SKS = [(i + 1).to_bytes(32, "big") for i in range(5)]
@@ -184,3 +197,79 @@ def test_small_sets_resolve_the_card_first(memo, routes, monkeypatch):
     assert routes["chain"] == [] and not routes["host"]
     # the host tail asked for by name needs no card
     assert B.verify_points(entries, message_points=dict(memo), host=True) is True
+
+
+@pytest.fixture
+def tails(monkeypatch):
+    """Counts the calls of each pairing tail: ``hybrid`` (the native
+    ``final_exp_is_one`` of its host half) and ``composed`` (the device
+    final exponentiation)."""
+    seen = Counter()
+    host, ops = native.final_exp_is_one, BPair.get_pairing_ops("cpu")
+    device = ops["final_exp"]
+
+    def host_spy(values):
+        seen["hybrid"] += 1
+        return host(values)
+
+    def device_spy(f):
+        seen["composed"] += 1
+        return device(f)
+
+    monkeypatch.setattr(native, "final_exp_is_one", host_spy)
+    monkeypatch.setitem(ops, "final_exp", device_spy)
+    monkeypatch.setattr(B, "DEVICE_CHAIN_MIN", 0)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["valid", "forged"])
+@pytest.mark.parametrize("tail_min", [1, 2], ids=["composed", "hybrid"])
+def test_tail_routes_by_checks(memo, tails, monkeypatch, tail_min, case):
+    """One check: at a tail constant of 1 the composed tail, at 2 the
+    hybrid one."""
+    monkeypatch.setattr(BPair, "DEVICE_TAIL_MIN", tail_min)
+    entries = _entries(memo, 3, case)
+    want = case == "valid"
+    assert JB.verify_points(entries) is want
+    got = B.verify_points(entries, message_points=dict(memo), device="cpu", coeff_bits=BITS)
+    assert got is want
+    assert tails == Counter({"composed" if tail_min == 1 else "hybrid": 1})
+
+
+def test_bisection_levels_take_both_tails(memo, tails, monkeypatch):
+    monkeypatch.setattr(BPair, "DEVICE_TAIL_MIN", 2)
+    entries = _entries(memo, 5, "forged")
+    want = JB.batch_verify_each_points(entries)
+    assert want == [i != FORGED for i in range(5)]
+    got = B.batch_verify_each_points(entries, message_points=dict(memo), device="cpu",
+                                     coeff_bits=BITS)
+    assert got == want
+    # levels of 1, 2 and 2 checks: [0, 5); [0, 2) [2, 5); [0, 1) [1, 2)
+    assert tails == Counter({"hybrid": 1, "composed": 2})
+
+
+def test_cached_drain_levels_take_both_tails(memo, tails, monkeypatch):
+    """A drain over a 4-committee x 4-member cache with one aggregate signed
+    by the wrong key, blamed as the JAX package's pure-Python pairing check
+    of each aggregate blames it."""
+    monkeypatch.setattr(BPair, "DEVICE_TAIL_MIN", 2)
+    sks = [int.from_bytes(sk, "big") for sk in SKS[:4]] * 4
+    keys = [C.g1.multiply_raw(C.G1_GENERATOR, k) for k in sks]
+    committees = np.arange(16, dtype=np.int32).reshape(4, 4)
+    cache = BB.DeviceCommitteeCache(BB._g1_planes(keys), committees, device="cpu", chunk=4, mmax=1)
+    neg_g1 = C.g1.affine_neg(C.G1_GENERATOR)
+    entries, oracle = [], []
+    for comm in range(4):
+        missing = [int(committees[comm][comm])]
+        members = [int(v) for v in committees[comm] if int(v) not in missing]
+        msg = MSGS[comm % 2]
+        h = memo[(msg, DST_POP)]
+        agg_sk = sum(sks[v] for v in members) + (1 if comm == FORGED else 0)
+        sig = C.g2.multiply_raw(h, agg_sk)
+        entries.append((comm, missing, msg, sig))
+        agg_pk = C.g1.multiply_raw(C.G1_GENERATOR, sum(sks[v] for v in members))
+        oracle.append(JP.pairing_check([(agg_pk, h), (neg_g1, sig)]))
+    assert oracle == [i != FORGED for i in range(4)]
+    got = B.batch_verify_each_cached(cache, entries, message_points=dict(memo), coeff_bits=BITS)
+    assert got == oracle
+    assert tails == Counter({"hybrid": 1, "composed": 2})

@@ -7,7 +7,8 @@ bytes.  The port runs each check as a chained device verify on the CPU
 (the field kernels' plain versions) at 16-bit coefficients, its size gate
 ``DEVICE_CHAIN_MIN`` set to 0 so that these small sets take the device
 route (``tests/test_torch_size_routes.py`` holds the routes on both sides
-of the gate); the JAX package's verdicts come from its CPU route (below its
+of the gate), each chained call on the composed pairing tail
+(``DEVICE_TAIL_MIN`` at 0) and the single sets also on the hybrid one; the JAX package's verdicts come from its CPU route (below its
 device-chain size gate, the host RLC).  RLC coefficients are random, so verdicts are compared,
 not packed checks.  Tolerance: none, verdicts are exact.
 """
@@ -24,6 +25,7 @@ from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
 from lambda_ethereum_consensus_tpu_torch.crypto.bls.fields import R
 from lambda_ethereum_consensus_tpu_torch.crypto.bls.hash_to_curve import DST_POP, hash_to_g2
 from lambda_ethereum_consensus_tpu_torch.ops import bls_batch as BB
+from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
 
 MSGS = [b"verify-points-a", b"verify-points-b"]
 BITS = 16
@@ -38,12 +40,18 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(params=[0], ids=["constant-0"])
+# the pairing tail's constant for each case: at 0 every chained call takes
+# the composed tail, at 64 these one- and two-check calls the hybrid one
+TAIL_MIN = {"constant-0": 0, "constant-0-hybrid-tail": 64}
+
+
+@pytest.fixture(params=list(TAIL_MIN))
 def chain_min(request, monkeypatch):
     """The set gate's constant for a case: at 0 every set takes the chained
-    device route."""
-    monkeypatch.setattr(B, "DEVICE_CHAIN_MIN", request.param)
-    return request.param
+    device route, its tail as ``TAIL_MIN`` puts it."""
+    monkeypatch.setattr(B, "DEVICE_CHAIN_MIN", 0)
+    monkeypatch.setattr(BPair, "DEVICE_TAIL_MIN", TAIL_MIN[request.param])
+    return 0
 
 
 @pytest.fixture(scope="module")
@@ -89,6 +97,7 @@ def test_verify_points_matches_jax_and_host(memo, chain_min):
     ],
     ids=["one-bad", "two-bad", "none-point"],
 )
+@pytest.mark.parametrize("chain_min", ["constant-0"], indirect=True)  # the composed tail
 def test_batch_verify_each_points_blame_matches_jax(memo, monkeypatch, chain_min, bad, none_at,
                                                      levels):
     entries = _entries(memo, bad)
