@@ -75,6 +75,21 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    host Jacobian sums), and a fold of 64 openings made on the host,
    verified on the card as one MSM of at most 384 lanes, True and, with
    one value tampered, False;
+3e. the validator duty engine on phase 3c's store: a ``DutyScheduler`` on
+   the card operating validators 0-16,383 and the proposers of the two slots
+   after the head (validator v holding phase 3b's real key or the v mod
+   16,384-th seeded one), against a ``SlotClock`` from the state's genesis
+   time; ``duties_for_epoch`` timed; each slot's ``on_tick`` at its start
+   (propose), 1/3 (attest) and 2/3 (aggregate), each produced block imported
+   with ``on_block`` and the head, the second carrying the first slot's
+   published aggregates; seconds per phase split into hash, ladder or
+   native, pool, proposal (``process_slots``, build, root) and import; each
+   phase's completion offset and deadline misses read from the port's
+   registry (printed, not failed); field and SHA-256 launches per phase (none
+   of the field kernels for a flush under ``DUTY_SIGN_MIN``, the SHA-256
+   kernel for each proposal); then every flush signed again on the ladder
+   (``DUTY_SIGN_MIN`` at 0, all three field kernels), byte for byte the
+   walk's, 64 of them ``api.sign``;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -85,9 +100,10 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    against the host sums of their members; and a small sub-drain against
    the host ``pairing_check`` oracle;
 5. duty signing: 1,024 seeded keys signing 64 messages (16 signers each,
-   one ``SIGN_CHUNK``) through ``sign_batch`` at the full
-   256-bit ladder, cold and warm, then hash, ladder and affine timed apart;
-   every signature equal to the host comb;
+   one ``SIGN_CHUNK``) through ``sign_batch`` on the full 256-bit ladder
+   (``DUTY_SIGN_MIN`` at 0), cold and warm, then hash, ladder and affine
+   timed apart; every signature equal to the host route; then the flush on
+   its default route, whose launches must be what ``DUTY_SIGN_MIN`` picks;
 6. signature sets: ``verify_points`` over those 1,024 entries, ``batch_verify``
    over their bytes, bisection blame of one swapped signature through
    ``batch_verify_each_points``, a ``None`` point, one entry (a block's
@@ -98,24 +114,29 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
 6b. the size routes, each route forced through its constant and timed warm
    (median of 3), every route's verdicts equal, each row printed beside the
    card's name and power limit: a set through ``verify_points`` on the
-   device chain and on the host tail at 16,384 down to 1 entries (tiled
-   from phase 6's entries); ``on_attestation_batch`` of the first 1 to
+   device chain and on the host tail at 32,768 down to 1 entries (tiled
+   from phase 6's entries); ``on_attestation_batch`` of the first 4 to
    1,024 of phase 3c's drain, re-submitted to its store, through the cached
    and the host body (every verdict None, the latest messages unchanged),
    and the cached body cold at 64; ``_verify_deferred_attestations`` over
-   the first 8 to 128 aggregates of phase 3c's block through its three
+   the first 16 to 64 aggregates of phase 3c's block through its three
    routes; (d) the pairing tail: ``check_tail`` over 1 to 256 checks of two
    Miller outputs each (to 1,024 while the composed tail has won nowhere),
    every eighth check false, through the hybrid tail (native final
    exponentiation on the host) and the composed one (on the card), then
    phase 4's drain, phase 6's 1,024-entry set on the device chain and
-   phase 3b's block import (its set on the device chain) each on its
-   default route and on the composed tail, verdicts equal, the composed
+   phase 3b's block import (its set on the device chain) each once on its
+   default route and once on the composed tail, verdicts equal, the composed
    tail launching exactly ``bls_pairing.FINAL_EXP_LAUNCHES`` more field
-   kernels.  A route that loses along its sweep (the card on the set, the
-   host on the drain and the block, the hybrid tail) stops once another
-   route has been at least as fast at two sizes in a row, and the sweep
-   ends with it.  The crossovers are printed beside the constants;
+   kernels; (e) the sign flush: ``sign_batch`` of 2,048 down to 1
+   signatures (16 signers a message; 8 and 1 signers one message) on the
+   card's ladder and on the host route (the native multiply per
+   signature), every signature equal.  A route that loses along its sweep
+   (the card on the set and the sign flush, the host on the drain and the
+   block, the hybrid tail) stops once another route has been at least as
+   fast at two sizes in a row, and the sweep ends with it (the sign
+   flush's host route runs on to 1).  The crossovers are printed beside the
+   constants;
 7. batch scalar multiplication: the mainnet KZG dev setup (4,096 host scalar
    multiplications, timed), ``batch_g1_mul`` on its 4,096 points with 255-bit
    scalars, ``batch_g2_mul`` on 1,024 points with 64-bit scalars (``k = 0``
@@ -146,7 +167,9 @@ Every path of phases 3-8 is driven with the kernels' launch counts set to 0
 just before it and read just after; a path that launched a kernel of its
 own no time fails the run (the block imports of phases 3b and 3c need both
 the SHA-256 kernel and the three field kernels; phase 3d's planes the
-SHA-256 kernel, its vector commitment the three field kernels).  A call on
+SHA-256 kernel, its vector commitment the three field kernels; phase 3e's
+proposals the SHA-256 kernel, its re-signed flushes the three field
+kernels).  A call on
 its default route through a size gate must launch every field kernel at or
 above the gate's threshold and none below it.  Needs one card, ``nvcc``,
 ``cuobjdump`` and ``g++``; exits nonzero without a card.  Longer records
@@ -233,11 +256,15 @@ VC_OPENED, VC_FOLD, VC_FOLD_WIDTH = 16, 16, 4
 # ROUTE_COLD_DRAIN) and on the first ROUTE_BLOCK_SIZES aggregates of phase
 # 3c's block; a route that loses along its sweep (the card on the set, the
 # host on the drain and the block) stops once another route has been at
-# least as fast at ROUTE_STOP sizes in a row, and the sweep ends with it
+# least as fast at ROUTE_STOP sizes in a row, and the sweep ends with it;
+# the drain's and the block's sweeps span just the sizes that bracket their
+# constants, to hold the smoke's time
 ROUTE_SET_SIZES = (32768, 16384, 8192, 4096, 2048, 1024, 128, 16, 1)
-ROUTE_DRAIN_SIZES = (1, 4, 8, 16, 64, 128, 256, 512, 1024)
-ROUTE_BLOCK_SIZES = (8, 16, 32, 64, 128)
+ROUTE_DRAIN_SIZES = (4, 8, 16, 64, 128, 256, 512, 1024)
+ROUTE_BLOCK_SIZES = (16, 32, 64)
 ROUTE_REPS, ROUTE_COLD_DRAIN, ROUTE_STOP = 3, 64, 2
+# the tail's three paths (part d) run once on each tail
+TAIL_PATH_REPS = 1
 # the pairing tail alone (size routes, part d): TAIL_SIZES checks of two
 # Miller outputs each, every TAIL_FALSE-th check false, through both tails up
 # to TAIL_SWEEP_END checks, and on to the last size while the composed tail
@@ -248,6 +275,16 @@ TAIL_SWEEP_END, TAIL_FALSE = 256, 8
 # phase 4's drain with every BLAME_EVERY-th signature negated; its last
 # bisection level checks each of the BLAME_DRAIN aggregates alone
 BLAME_DRAIN, BLAME_EVERY = 128, 2
+# the sign flush (size routes, part e): SIGN_SWEEP signatures, from the
+# largest down, SIGN_PER_MESSAGE signers a message (fewer: one message), on
+# the card's ladder and on the host route; the card stops once the host has
+# been at least as fast at ROUTE_STOP sizes in a row
+SIGN_SWEEP, SIGN_PER_MESSAGE = (2048, 1024, 512, 128, 32, 8, 1), 16
+# the duty engine (phase 3e): a scheduler operating validators 0 ..
+# DUTY_KEYS - 1 and the proposers of the DUTY_SLOTS slots after the head,
+# every flush re-signed on the ladder and RESIGN_SAMPLE signatures against
+# api.sign
+DUTY_KEYS, DUTY_SLOTS, RESIGN_SAMPLE = 16_384, 2, 64
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -799,6 +836,14 @@ def _device_chain(value: int = 0):
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
 
     return _constant(B, "DEVICE_CHAIN_MIN", value)
+
+
+def _duty_sign(value: int = 0):
+    """The sign flush's threshold (``ops/bls_sign.DUTY_SIGN_MIN``) at
+    ``value``: at 0 every flush takes the card's ladder."""
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_sign as S
+
+    return _constant(S, "DUTY_SIGN_MIN", value)
 
 
 def _device_tail(value: int = 0):
@@ -1766,6 +1811,224 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
     paths = {"fork-choice drain": drain_path, "mainnet block import": import_path}
     return paths, dict(store=store, drain=drain, block_set=block_set[0])
 
+_DUTY_PHASES = ("propose", "attest", "aggregate")  # at 0, 1/3 and 2/3 of a slot
+
+
+def _timing(timers: Counter, key: str, fn):
+    """``fn`` with the seconds of each call added to ``timers[key]``."""
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            timers[key] += time.perf_counter() - t
+
+    return timed
+
+
+def duty_phase(dev, record: dict, card: str, spec, store, start_sks: dict,
+               keys: list[int]) -> None:
+    """Phase 3e: the validator duty engine at 1,000,000 validators on phase
+    3c's store.
+
+    A ``DutyScheduler`` on the card operates validators 0 .. DUTY_KEYS - 1
+    and the proposers of the DUTY_SLOTS slots after the store's head
+    (validator v holding ``start_sks.get(v)`` or ``keys[v % REGISTRY_KEYS]``)
+    against a ``SlotClock`` from the state's genesis time;
+    ``duties_for_epoch`` is timed.  Each slot's ``on_tick`` runs at its
+    start (propose), 1/3 (attest) and 2/3 (aggregate); each produced block
+    is imported with ``on_block`` and must become the head, and the second
+    must carry the first slot's published aggregates.  Seconds per phase
+    are split into hash, ladder or native, pool, proposal (``process_slots``,
+    build, root) and import; each phase's completion offset and deadline
+    misses are read from the port's registry (a miss is printed, not
+    failed); field and SHA-256 launches are counted per phase (no field
+    launch for a flush below ``DUTY_SIGN_MIN``, the SHA-256 kernel for each
+    proposal).  Every flush is then signed again on the ladder
+    (``DUTY_SIGN_MIN`` at 0, all three field kernels) and must equal the
+    walk's signatures byte for byte, RESIGN_SAMPLE of them ``api.sign``."""
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+    from lambda_ethereum_consensus_tpu_torch.crypto.bls import api
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_sign as S
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.ssz import HashlibBackend, set_hash_backend
+    from lambda_ethereum_consensus_tpu_torch.state_transition import core
+    from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+    from lambda_ethereum_consensus_tpu_torch.telemetry import get_metrics
+    from lambda_ethereum_consensus_tpu_torch.tracing import SlotClock
+    from lambda_ethereum_consensus_tpu_torch.validator import (
+        DutyScheduler, is_aggregator_hash, proposer_index_at_slot,
+    )
+    from lambda_ethereum_consensus_tpu_torch.validator import scheduler as SCH
+
+    t_phase = time.perf_counter()
+    sops.install_device_backend(dev)
+    metrics = get_metrics()
+    head = FC.get_head(store, spec)
+    state = store.block_states[head]
+    slots = [int(state.slot) + 1 + i for i in range(DUTY_SLOTS)]
+    epoch = slots[0] // spec.SLOTS_PER_EPOCH
+
+    def key(v: int) -> bytes:
+        return (start_sks.get(v) or keys[v % REGISTRY_KEYS]).to_bytes(32, "big")
+
+    view = BeaconStateMut(state)  # vectorized registry columns
+    proposers = {s: proposer_index_at_slot(view, s, spec) for s in slots}
+    keymap = {v: key(v) for v in range(DUTY_KEYS)}
+    keymap.update({v: key(v) for v in proposers.values()})
+    clock = SlotClock(int(state.genesis_time), int(spec.SECONDS_PER_SLOT), 3)
+    sched = DutyScheduler(keymap, spec, clock=clock, device=dev)
+    flushes: list = []  # (slot, phase, keys, messages, signatures)
+    current = {}
+    default_sign = sched._sign
+
+    def recorded(secret_keys, messages):
+        sigs = default_sign(secret_keys, messages)
+        flushes.append((current["slot"], current["phase"], list(secret_keys), list(messages),
+                        sigs))
+        return sigs
+
+    sched._sign = recorded
+    t0 = time.perf_counter()
+    duties = sched.duties_for_epoch(state, epoch)
+    duties_s = time.perf_counter() - t0
+    per_slot = {s: len(duties.attesters_by_slot.get(s, [])) for s in slots}
+    out: dict = {"keys": len(keymap), "epoch": epoch, "duties_s": duties_s,
+                 "attester_duties": duties.attester_count,
+                 "committees_per_slot": duties.committees_per_slot, "slots": {}}
+    print(f"duties_for_epoch({epoch}) for {len(keymap)} keys ({DUTY_KEYS} validators and the "
+          f"proposers {sorted(proposers.values())} of slots {slots}): {duties_s:.3f} s; "
+          f"{duties.attester_count} attester duties over {duties.committees_per_slot} "
+          f"committees a slot, {per_slot} in the ticked slots [{card}]")
+
+    timers: Counter = Counter()
+    pool = sched.pool
+    for name in ("add_vote", "aggregate_for", "block_attestations", "prune"):
+        setattr(pool, name, _timing(timers, "pool", getattr(pool, name)))
+    patches = [(S, "hash_to_g2_many", "hash"), (S, "_sign_points_host", "native"),
+               (S, "_sign_points_device", "ladder"), (SCH, "process_slots", "process_slots"),
+               (SCH, "build_signed_block", "build"), (core, "state_root", "root")]
+    aggregates: dict = {}
+    blocks: dict = {}
+    with contextlib.ExitStack() as stack:
+        for module, name, part in patches:
+            stack.enter_context(_constant(module, name,
+                                          _timing(timers, part, getattr(module, name))))
+        for slot in slots:
+            row: dict = {}
+            for k, phase in enumerate(_DUTY_PHASES):
+                now = clock.slot_start(slot) + k * spec.SECONDS_PER_SLOT / 3
+                current.update(slot=slot, phase=phase)
+                miss0 = metrics.get("duty_deadline_miss_total", type=phase)
+                hist0 = metrics.get_histogram("duty_completion_offset_seconds", type=phase)
+                seen0, n0 = timers.copy(), len(flushes)
+                _zero_fq_launches()
+                sops.sha256_kernel_launches = 0
+                _sync()
+                t0 = time.perf_counter()
+                produced = sched.on_tick(store, now)
+                _sync()
+                wall = time.perf_counter() - t0
+                fq, sha = _launches(), sops.sha256_kernel_launches
+                hist = metrics.get_histogram("duty_completion_offset_seconds", type=phase)
+                if hist is None or hist[3] != (hist0[3] if hist0 else 0) + 1:
+                    raise AssertionError(f"slot {slot} {phase}: no completion offset recorded")
+                parts = {p: timers[p] - seen0[p] for p in
+                         ("hash", "ladder", "native", "pool", "process_slots", "build", "root")}
+                sizes = [len(f[2]) for f in flushes[n0:]]
+                info = dict(seconds=wall, parts=parts, flushes=sizes, fq_launches=fq,
+                            sha256_launches=sha,
+                            offset_s=hist[2] - (hist0[2] if hist0 else 0.0),
+                            misses=metrics.get("duty_deadline_miss_total", type=phase) - miss0)
+                if any(n >= S.DUTY_SIGN_MIN for n in sizes):
+                    _require_all(fq, f"slot {slot} {phase} (a flush on the ladder)")
+                elif phase != "propose" and _total(fq):
+                    raise AssertionError(f"slot {slot} {phase}: flushes {sizes} under "
+                                         f"DUTY_SIGN_MIN launched {fq}")
+                if phase == "propose":
+                    if "block" not in produced:
+                        raise AssertionError(f"slot {slot}: the managed proposer made no block")
+                    if not sha:
+                        raise AssertionError(f"slot {slot}: the proposal launched no SHA-256 "
+                                             f"kernel")
+                    signed, _post = produced["block"]
+                    _zero_fq_launches()
+                    sops.sha256_kernel_launches = 0
+                    _sync()
+                    t0 = time.perf_counter()
+                    root = FC.on_block(store, signed, spec=spec, device=dev)
+                    _sync()
+                    info["import_s"] = time.perf_counter() - t0
+                    info["import_fq_launches"] = _launches()
+                    info["import_sha256_launches"] = sops.sha256_kernel_launches
+                    new_head = FC.get_head(store, spec)
+                    if root != signed.message.hash_tree_root(spec) or new_head != root or \
+                            store.head_cache.head() != root:
+                        raise AssertionError(f"slot {slot}: the imported block is not the head")
+                    info["attestations"] = len(signed.message.body.attestations)
+                    blocks[slot] = signed
+                elif phase == "attest":
+                    info["votes"] = len(produced.get("attestations", []))
+                    if info["votes"] != per_slot[slot]:
+                        raise AssertionError(f"slot {slot}: {info['votes']} votes for "
+                                             f"{per_slot[slot]} duties")
+                else:
+                    aggregates[slot] = produced.get("aggregates", [])
+                    slot_duties = duties.attesters_by_slot.get(slot, [])
+                    proofs = flushes[n0][4] if len(flushes) > n0 else []
+                    info["winners"] = sum(is_aggregator_hash(p, d.committee_size)
+                                          for d, p in zip(slot_duties, proofs))
+                    info["aggregates"] = len(aggregates[slot])
+                row[phase] = info
+                p = info["parts"]
+                print(f"slot {slot} {phase} tick: {wall:.3f} s (hash {p['hash']:.3f}, ladder "
+                      f"{p['ladder']:.3f}, native {p['native']:.3f}, pool {p['pool']:.3f}, "
+                      f"process_slots {p['process_slots']:.3f}, build "
+                      f"{p['build'] - p['root']:.3f}, root {p['root']:.3f})"
+                      + (f", import {info['import_s']:.3f} s" if "import_s" in info else "")
+                      + f"; flushes {sizes}; "
+                      + ", ".join(f"{name} {info[name]}" for name in
+                                  ("attestations", "votes", "winners", "aggregates")
+                                  if name in info)
+                      + f"; completion offset {info['offset_s']:.3f} s, deadline misses "
+                      f"{info['misses']:.0f}; {_total(fq)} field launches {fq}, {sha} SHA-256"
+                      + (f"; import {_total(info['import_fq_launches'])} field, "
+                         f"{info['import_sha256_launches']} SHA-256" if "import_s" in info
+                         else "")
+                      + f" [{card}]")
+            out["slots"][slot] = row
+    if not aggregates[slots[0]]:
+        raise AssertionError(f"slot {slots[0]} published no aggregate")
+    included = {att.encode(spec) for att in blocks[slots[1]].message.body.attestations}
+    published = [sap.message.aggregate.encode(spec) for sap in aggregates[slots[0]]]
+    if not all(a in included for a in published):
+        raise AssertionError(f"slot {slots[1]}'s block misses slot {slots[0]}'s aggregates")
+    print(f"slot {slots[1]}'s block carries all {len(published)} aggregates slot {slots[0]} "
+          f"published ({len(included)} attestations); the head is slot {slots[-1]}'s block")
+
+    # ---- every flush again on the ladder, byte for byte
+    with _duty_sign(0):
+        again, resign_s, resign_launches = _counted(
+            lambda: [S.sign_batch(k, m, device=dev) for _, _, k, m, _ in flushes],
+            "the duty flushes re-signed on the ladder")
+    for (slot, phase, _, _, sigs), sigs_again in zip(flushes, again):
+        if sigs_again != sigs:
+            raise AssertionError(f"slot {slot} {phase}: the ladder's signatures != the walk's")
+    every = [(k, m, sig) for _, _, ks, ms, sigs in flushes for k, m, sig in zip(ks, ms, sigs)]
+    pick = np.linspace(0, len(every) - 1, RESIGN_SAMPLE).astype(int).tolist()
+    if [api.sign(every[i][0], every[i][1]) for i in pick] != [every[i][2] for i in pick]:
+        raise AssertionError("the walk's signatures != api.sign on a sample")
+    print(f"{len(flushes)} flushes ({[len(f[2]) for f in flushes]} signatures) signed again on "
+          f"the ladder (DUTY_SIGN_MIN at 0): {resign_s:.3f} s, {_total(resign_launches)} field "
+          f"launches {resign_launches}; every signature == the walk's, {RESIGN_SAMPLE} == "
+          f"api.sign [{card}]")
+    set_hash_backend(HashlibBackend())
+    out.update(flushes=[(s, ph, len(k)) for s, ph, k, _, _ in flushes], resign_s=resign_s,
+               resign_launches=resign_launches, duty_sign_min=S.DUTY_SIGN_MIN,
+               seconds=time.perf_counter() - t_phase)
+    record["duties"] = out
+
+
 class _MetricCounts:
     """A metrics sink for the witness modules: counts each ``inc`` by name
     and labels, and each ``observe`` as ``<name>_count``."""
@@ -2109,8 +2372,10 @@ def witness_phase(dev, rng, record: dict, state, root: bytes, spec) -> tuple[dic
 
 def sign_phase(dev, rng, record: dict) -> dict:
     """Phase 5: a duty flush of SIGNERS signatures over DUTY_MESSAGES
-    messages through ``sign_batch``, cold and warm; then hash, ladder and
-    affine apart; every signature equal to the host comb."""
+    messages through ``sign_batch`` on the ladder (``DUTY_SIGN_MIN`` at 0),
+    cold and warm; then hash, ladder and affine apart; every signature
+    equal to the host route; then the flush once on its default route,
+    whose launches must be what ``DUTY_SIGN_MIN`` picks."""
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import api
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
     from lambda_ethereum_consensus_tpu_torch.crypto.bls.fields import R
@@ -2125,8 +2390,9 @@ def sign_phase(dev, rng, record: dict) -> dict:
     messages = [b"chip-smoke duty msg %d" % (i // per_msg) for i in range(SIGNERS)]
     flushes = []
     for tag in ("cold", "warm"):
-        sigs, sec, launches = _counted(lambda: S.sign_batch(sks, messages, device=dev),
-                                       f"sign_batch ({tag})")
+        with _duty_sign(0):
+            sigs, sec, launches = _counted(lambda: S.sign_batch(sks, messages, device=dev),
+                                           f"sign_batch ({tag})")
         flushes.append((sigs, sec, launches))
     if flushes[0][0] != flushes[1][0] or flushes[0][2] != flushes[1][2]:
         raise AssertionError("cold and warm sign flushes differ")
@@ -2146,7 +2412,13 @@ def sign_phase(dev, rng, record: dict) -> dict:
     comb = S._sign_points_host(points, scalars)
     comb_s = time.perf_counter() - t0
     if sig_points != comb or [C.g2_to_bytes(p) for p in comb] != sigs:
-        raise AssertionError("device signatures != host comb")
+        raise AssertionError("device signatures != the host route")
+    default_card = SIGNERS >= S.DUTY_SIGN_MIN
+    default_sigs, default_s, default_launches = _default_route(
+        lambda: S.sign_batch(sks, messages, device=dev), default_card,
+        "sign_batch (default route)")
+    if default_sigs != sigs:
+        raise AssertionError("the default route's signatures != the ladder's")
     sample = [0, 1, SIGNERS // 2, SIGNERS - 1]
     if [api.sign(sks[i], messages[i]) for i in sample] != [sigs[i] for i in sample]:
         raise AssertionError("device signatures != api.sign on a sample")
@@ -2158,13 +2430,18 @@ def sign_phase(dev, rng, record: dict) -> dict:
           f"({_total(launches)} in all)")
     print(f"sign flush parts: hash {hash_s:.3f} s ({len(distinct)} messages on the host), "
           f"ladder {ladder_s:.3f} s ({_total(ladder_launches)} launches), affine {affine_s:.3f} s")
-    print(f"{SIGNERS} signatures == host comb ({comb_s:.1f} s on the host) and api.sign on "
-          f"{len(sample)}")
+    print(f"{SIGNERS} signatures == the host route ({comb_s:.1f} s, native multiply per "
+          f"signature) and api.sign on {len(sample)}")
+    print(f"sign flush on its default route ({'ladder' if default_card else 'host route'}, "
+          f"DUTY_SIGN_MIN {S.DUTY_SIGN_MIN}): {default_s:.3f} s, {_total(default_launches)} "
+          f"field launches; signatures == the ladder's")
     print(_idle_line("sign ladder + affine", wall, busy) + f"; peak device memory {peak:.0f} MiB")
     record["sign"] = dict(
         signers=SIGNERS, messages=DUTY_MESSAGES, flush_s=[f[1] for f in flushes],
         launches_per_flush=launches, hash_s=hash_s, ladder_s=ladder_s, affine_s=affine_s,
-        ladder_launches=ladder_launches, host_comb_s=comb_s, profiled_s=wall,
+        ladder_launches=ladder_launches, host_route_s=comb_s, profiled_s=wall,
+        default_route="ladder" if default_card else "host", default_s=default_s,
+        default_launches=default_launches,
         device_busy_ms=busy, peak_mib=peak,
     )
     return dict(scalars=scalars, messages=messages, points=points, sig_points=sig_points,
@@ -2356,8 +2633,8 @@ def tail_routes(dev, card: str, paths: dict, blame: tuple) -> dict:
     fast at ROUTE_STOP sizes in a row, and the sweep ends at TAIL_SWEEP_END
     once the composed tail has won anywhere (the outputs past it are built
     only if it goes on).  Then each of ``paths`` (one chained call each) on
-    its default route and on the composed tail, the same way, verdicts
-    equal, and the launch gap between them held to the composed final
+    its default route and on the composed tail, TAIL_PATH_REPS runs each,
+    verdicts equal, and the launch gap between them held to the composed final
     exponentiation's field calls.  A path is a callable, or ``(setup,
     fn)``: then each run times ``fn(setup())`` without the setup.  Last
     ``blame`` = (name, fn, verdicts, levels): a drain whose bisection has
@@ -2406,8 +2683,9 @@ def tail_routes(dev, card: str, paths: dict, blame: tuple) -> dict:
         setup, fn = path if isinstance(path, tuple) else (None, path)
         row = {}
         row["default_s"], default, row["default_launches"] = _tail_route(
-            fn, BPair.DEVICE_TAIL_MIN, setup)
-        row["composed_s"], composed, row["composed_launches"] = _tail_route(fn, 0, setup)
+            fn, BPair.DEVICE_TAIL_MIN, setup, TAIL_PATH_REPS)
+        row["composed_s"], composed, row["composed_launches"] = _tail_route(
+            fn, 0, setup, TAIL_PATH_REPS)
         if default != composed:
             raise AssertionError(f"{name}: the default route said {default}, the composed tail "
                                  f"{composed}")
@@ -2445,8 +2723,51 @@ def tail_routes(dev, card: str, paths: dict, blame: tuple) -> dict:
     return out
 
 
+def sign_routes(dev, card: str, sign_scalars: list) -> dict:
+    """Size routes, part (e): ``sign_batch`` of SIGN_SWEEP signatures (keys
+    tiled from ``sign_scalars``, SIGN_PER_MESSAGE signers a message) from
+    the largest down, each timed warm (median of ROUTE_REPS runs) on the
+    host route (the native library's multiply per signature) and on the
+    card's ladder, through ``DUTY_SIGN_MIN``; every signature equal.  The
+    card stops once the host has been at least as fast at ROUTE_STOP sizes
+    in a row; the host route runs on to the smallest size."""
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_sign as S
+
+    t0 = time.perf_counter()
+    sks = [k.to_bytes(32, "big") for k in
+           (sign_scalars * -(-SIGN_SWEEP[0] // len(sign_scalars)))[:SIGN_SWEEP[0]]]
+    rows, losses = [], 0
+    for n in SIGN_SWEEP:
+        per = min(SIGN_PER_MESSAGE, n)
+        msgs = [b"chip-smoke sign sweep %d" % (i // per) for i in range(n)]
+        row = {"signatures": n, "messages": n // per}
+        _zero_fq_launches()
+        with _duty_sign(n + 1):
+            row["host_s"], host_sigs = _median_run(
+                lambda: S.sign_batch(sks[:n], msgs, device=dev))
+        if _total(_launches()):
+            raise AssertionError(f"the host route of {n} signatures launched {_launches()}")
+        if losses < ROUTE_STOP:
+            _zero_fq_launches()
+            with _duty_sign(0):
+                row["card_s"], card_sigs = _median_run(
+                    lambda: S.sign_batch(sks[:n], msgs, device=dev))
+            _require_all(_launches(), f"the ladder's sign flush of {n}")
+            if card_sigs != host_sigs:
+                raise AssertionError(f"a sign flush of {n}: the routes' signatures differ")
+            losses = losses + 1 if row["host_s"] <= row["card_s"] else 0
+        rows.append(row)
+        print(f"size route, sign flush of {n} signatures ({row['messages']} messages x {per} "
+              f"signers, sign_batch): card "
+              + (f"{row['card_s']:.4f} s" if "card_s" in row else "stopped")
+              + f", host route {row['host_s']:.4f} s; signatures equal [{card}]")
+    timed = [r for r in rows if "card_s" in r]
+    return dict(rows=rows, crossover=_crossover(timed, "signatures", "card_s", "host_s"),
+                constant=S.DUTY_SIGN_MIN, seconds=time.perf_counter() - t0)
+
+
 def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict,
-                      tail_paths: dict, blame: tuple) -> None:
+                      tail_paths: dict, blame: tuple, sign_scalars: list) -> None:
     """The size routes: each route of the three size gates timed warm
     (median of ROUTE_REPS runs) on either side of where it crosses, every
     route's verdicts equal.  (a) a signature set through ``verify_points``
@@ -2458,7 +2779,10 @@ def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict
     over the first k aggregates of phase 3c's block through its three
     routes; (d) the pairing tail (``tail_routes``) alone, on ``tail_paths``
     and on the blaming drain ``blame`` = (name, fn, verdicts), its levels
-    of at least DEVICE_TAIL_MIN checks counted from the verdicts.  Each
+    of at least DEVICE_TAIL_MIN checks counted from the verdicts; (e) the
+    sign flush (``sign_batch``) of SIGN_SWEEP signatures by keys tiled from
+    ``sign_scalars``, on the card's ladder and on the host route, every
+    signature equal.  Each
     route is forced through the constants and restored; a
     route stops once another has been at least as fast at ROUTE_STOP sizes
     in a row, and a sweep ends when its host side has stopped.
@@ -2468,6 +2792,7 @@ def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import batch as B
     from lambda_ethereum_consensus_tpu_torch.fork_choice import attestation as FA
     from lambda_ethereum_consensus_tpu_torch.ops import bls_pairing as BPair
+    from lambda_ethereum_consensus_tpu_torch.ops import bls_sign as S
     from lambda_ethereum_consensus_tpu_torch.state_transition import operations
 
     t_phase = time.perf_counter()
@@ -2587,6 +2912,9 @@ def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict
     }, (name, fn, want, levels))
     out["tail"]["seconds"] = time.perf_counter() - t0
 
+    # ---- (e) the sign flush, from the largest down
+    out["sign"] = sign_routes(dev, card, sign_scalars)
+
     out["seconds"] = time.perf_counter() - t_phase
     record["size_routes"] = out
     print(f"size-route crossovers (the card's median at or below the host's): set "
@@ -2598,7 +2926,9 @@ def size_routes_phase(dev, record: dict, card: str, spec, sets: dict, node: dict
           f"(DEVICE_TAIL_MIN {BPair.DEVICE_TAIL_MIN}; the tail part "
           f"{out['tail']['seconds']:.1f} s: the sweep and three paths "
           f"{out['tail']['sweep_and_paths_s']:.1f} s, the blaming drain "
-          f"{out['tail']['blame'][name]['seconds']:.1f} s); phase {out['seconds']:.1f} s [{card}]")
+          f"{out['tail']['blame'][name]['seconds']:.1f} s), sign flush {out['sign']['crossover']} "
+          f"signatures (DUTY_SIGN_MIN {S.DUTY_SIGN_MIN}; the sweep {out['sign']['seconds']:.1f} "
+          f"s); phase {out['seconds']:.1f} s [{card}]")
 
 
 def kzg_setup(record: dict):
@@ -3109,6 +3439,11 @@ def main() -> int:
     print(f"node phase {time.perf_counter() - t0:.1f} s")
     del transition["start"], key_points, compressed
 
+    # ---- phase 3e: the validator duty engine on phase 3c's store
+    t0 = time.perf_counter()
+    duty_phase(dev, record, card, spec, node_routes["store"], transition["start_sks"], keys)
+    print(f"duty-engine phase {time.perf_counter() - t0:.1f} s")
+
     # ---- phase 3d: the witness plane, at phase 3b's walk-end state
     t0 = time.perf_counter()
     witness_paths, witness_nodes = witness_phase(dev, rng, record, transition.pop("walk_end"),
@@ -3133,7 +3468,7 @@ def main() -> int:
         "untimed)": (transition["prime"],
                      lambda parent: transition["import_primed"](parent) is not None),
     }, (f"the drain of {BLAME_DRAIN} aggregates, {blame_want.count(False)} forged "
-        f"(batch_verify_each_cached)", blame_drain, blame_want))
+        f"(batch_verify_each_cached)", blame_drain, blame_want), duty["scalars"])
     del sets, node_routes
     t0 = time.perf_counter()
     setup = kzg_setup(record)

@@ -20,10 +20,11 @@ evicts from the OLDEST epoch present first, least-recently-used within
 that epoch, so a burst of historical-state traffic can never wash the hot
 head's entries out of a full cache.
 
-The port's copy of the JAX package's ``serve_cache.py``.  The port has no
-telemetry registry yet: ``metrics=None`` records nothing, and a
-``metrics`` object the caller passes gets the JAX package's
-``serve_cache_*`` calls (``inc``, ``set_gauge``), labeled ``cache=<name>``.
+The port's copy of the JAX package's ``serve_cache.py``.  The serving
+caches are not wired to the port's registry (:mod:`.telemetry`) yet:
+``metrics=None`` records nothing, and a ``metrics`` object the caller
+passes (the registry included) gets the JAX package's ``serve_cache_*``
+calls (``inc``, ``set_gauge``), labeled ``cache=<name>``.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ __all__ = ["SILENT", "ServeCache"]
 
 
 class _Silent:
-    """A metrics sink that records nothing (the default until the
-    telemetry registry is ported)."""
+    """A metrics sink that records nothing (the serving caches' default
+    until they are wired to :mod:`.telemetry`)."""
 
     def inc(self, name: str, value: float = 1, **labels) -> None:
         pass

@@ -7,10 +7,9 @@ transition) and the proposer signature.  This is the write-side counterpart
 of :mod:`..state_transition` and what devnets and integration tests use to
 mint chains.
 
-The port's copy of the single-key helpers of the JAX package's
-``validator/duties.py``; ``build_signed_block`` takes the ``device`` its
-dry-run transition checks the block's attestations on.  Selection proofs,
-aggregate-and-proof and the duty scheduler are not ported.
+The port's copy of the JAX package's ``validator/duties.py``;
+``build_signed_block`` takes the ``device`` its dry-run transition checks
+the block's attestations on.
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ from ..types.beacon import (
     SignedBeaconBlock,
     SyncAggregate,
 )
+from ..types.validator import AggregateAndProof, SignedAggregateAndProof
 
 
 def sign_block(
@@ -158,6 +158,38 @@ def make_sync_aggregate(state, sync_secret_keys, spec: ChainSpec | None = None):
     )
 
 
+def get_slot_signature(state, slot: int, secret_key: bytes, spec: ChainSpec) -> bytes:
+    """Selection proof: signature over the slot (validator spec)."""
+    domain = accessors.get_domain(
+        state, constants.DOMAIN_SELECTION_PROOF, misc.compute_epoch_at_slot(slot, spec), spec
+    )
+    # slot is a uint64; the epoch-root helper is generic over any uint64
+    return bls.sign(secret_key, misc.compute_signing_root_epoch(int(slot), domain))
+
+
+def is_aggregator_hash(selection_proof: bytes, committee_len: int) -> bool:
+    """The pure lottery: ``hash(proof)[:8] % max(1, len // TARGET) == 0``
+    (validator spec ``is_aggregator``).  Split out so the boundary cases
+    — modulo-1 committees (every member aggregates), the exact-threshold
+    digest — are testable without minting a committee-shaped state, and
+    so the duty scheduler can run the lottery straight off its derived
+    committee sizes."""
+    modulo = max(
+        1, int(committee_len) // constants.TARGET_AGGREGATORS_PER_COMMITTEE
+    )
+    digest = misc.hash_bytes(selection_proof)
+    return int.from_bytes(digest[:8], "little") % modulo == 0
+
+
+def is_aggregator(
+    state, slot: int, committee_index: int, selection_proof: bytes, spec: ChainSpec
+) -> bool:
+    """Hash-of-proof lottery selecting ~TARGET_AGGREGATORS_PER_COMMITTEE
+    members (validator spec)."""
+    committee = accessors.get_beacon_committee(state, slot, committee_index, spec)
+    return is_aggregator_hash(selection_proof, len(committee))
+
+
 def proposer_index_at_slot(state, slot: int, spec: ChainSpec | None = None) -> int:
     """Proposer for any ``slot`` answerable by ``state`` WITHOUT
     advancing it — one spec recipe: this simply names the accessor's
@@ -193,6 +225,31 @@ def attestation_data_from_state(
         source=state.current_justified_checkpoint,
         target=Checkpoint(epoch=epoch, root=target_root),
     )
+
+
+def build_aggregate_and_proof(
+    state,
+    aggregator_index: int,
+    aggregate: Attestation,
+    secret_key: bytes,
+    spec: ChainSpec,
+) -> SignedAggregateAndProof:
+    """SignedAggregateAndProof for gossip publication (validator spec)."""
+    proof = AggregateAndProof(
+        aggregator_index=aggregator_index,
+        aggregate=aggregate,
+        selection_proof=get_slot_signature(
+            state, aggregate.data.slot, secret_key, spec
+        ),
+    )
+    domain = accessors.get_domain(
+        state,
+        constants.DOMAIN_AGGREGATE_AND_PROOF,
+        misc.compute_epoch_at_slot(aggregate.data.slot, spec),
+        spec,
+    )
+    signature = bls.sign(secret_key, misc.compute_signing_root(proof, domain))
+    return SignedAggregateAndProof(message=proof, signature=signature)
 
 
 def make_attestation(

@@ -45,6 +45,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "state_transition.misc", "state_transition.mutable", "state_transition.mutators",
         "state_transition.operations", "state_transition.predicates",
         "state_transition.resident", "validator.duties",
+        "telemetry", "tracing", "utils.env", "validator.harness", "validator.pool",
+        "validator.scheduler",
         "serve_cache", "witness", "witness.coalesce", "witness.multiproof",
         "witness.service", "witness.vector_commitment", "witness.verify",
     ):

@@ -2,20 +2,23 @@
 oracle, byte for byte.
 
 ``sign_batch`` on the ladder path (the port on the CPU through the field
-kernels' plain versions; the JAX package's device plane in its interpret
-mode) at 16-bit keys over 3, 8 and 11 signatures, with the port's chunk
-pinned to 8 (11 = 8 + 3) and the JAX package's ``duty_sign`` buckets to 4
-and 8 to keep its interpret-mode work small; the host comb at full-width
-keys; the guards, which raise the same ``BlsError``.  Tolerance: none,
-signatures are bytes.
+kernels' plain versions, ``DUTY_SIGN_MIN`` at 0; the JAX package's device
+plane in its interpret mode) at 16-bit keys over 3, 8 and 11 signatures,
+with the port's chunk pinned to 8 (11 = 8 + 3) and the JAX package's
+``duty_sign`` buckets to 4 and 8 to keep its interpret-mode work small; the
+host route at full-width keys, through the native library and through the
+pure-Python comb; the guards, which raise the same ``BlsError``.
+Tolerance: none, signatures are bytes.
 """
+
+import contextlib
 
 import pytest
 import torch
 
 from lambda_ethereum_consensus_tpu.ops import aot as JAOT
 from lambda_ethereum_consensus_tpu.ops import bls_sign as JS
-from lambda_ethereum_consensus_tpu_torch.crypto.bls import api
+from lambda_ethereum_consensus_tpu_torch.crypto.bls import api, native
 from lambda_ethereum_consensus_tpu_torch.ops import bls_g2 as G2
 from lambda_ethereum_consensus_tpu_torch.ops import bls_sign as S
 
@@ -45,6 +48,8 @@ def _keys(n):
 
 
 def test_sign_batch_ladder_matches_jax_and_oracle(tiny_buckets, monkeypatch):
+    # every flush on the ladder, whatever its size
+    monkeypatch.setattr(S, "DUTY_SIGN_MIN", 0)
     sks, msgs = _keys(11)
     dispatched = []
     real = G2.g2_ladder
@@ -63,10 +68,35 @@ def test_sign_batch_ladder_matches_jax_and_oracle(tiny_buckets, monkeypatch):
 
 
 def test_sign_batch_host_comb_full_width_matches_jax_and_oracle():
-    # two signers per message build the comb tables; one signs alone
+    # three signers per message build the comb tables (the native library
+    # off); one signs alone
     sks = [(0x1234567 * (i + 1) ** 7 + 1).to_bytes(32, "big") for i in range(7)]
     msgs = [b"comb-a"] * 3 + [b"comb-b"] * 3 + [b"comb-c"]
-    got = S.sign_batch(sks, msgs, host=True)
+    with native.pure_python():
+        got = S.sign_batch(sks, msgs, host=True)
+    assert got == [api.sign(sk, m) for sk, m in zip(sks, msgs)]
+    assert got == JS.sign_batch(sks, msgs, device=False)
+
+
+@pytest.mark.parametrize("pure", [False, True], ids=["native", "pure-python"])
+def test_sign_batch_host_route_branches_match_jax_and_oracle(pure, monkeypatch):
+    # the native library's multiply per signature, or without it the comb
+    # tables for the two three-signer messages and a plain multiply for the
+    # lone one
+    sks = [(0x7654321 * (i + 2) ** 9 + 5).to_bytes(32, "big") for i in range(7)]
+    msgs = [b"route-a"] * 3 + [b"route-b"] * 3 + [b"route-c"]
+    tables = []
+    real = S._comb_tables
+
+    def spy(pt):
+        tables.append(pt)
+        return real(pt)
+
+    monkeypatch.setattr(S, "_comb_tables", spy)
+    with native.pure_python() if pure else contextlib.nullcontext():
+        assert native.enabled() is not pure
+        got = S.sign_batch(sks, msgs, host=True)
+    assert len(tables) == (2 if pure else 0)
     assert got == [api.sign(sk, m) for sk, m in zip(sks, msgs)]
     assert got == JS.sign_batch(sks, msgs, device=False)
 
