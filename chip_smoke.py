@@ -19,8 +19,9 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    state with 1,000,000 seeded validators (validator i holding the i mod
    16,384-th key) through
    ``install_device_backend()``, cold and warm, each equal to the hashlib
-   root, with the SHA-256 launch count read around each root and the node
-   count of every launch of a third root recorded;
+   root, with the SHA-256 launch count read around each root, one warm root
+   more with the telemetry registry off and one with it on (for phase 3f),
+   and the node count of every launch of a further root recorded;
 3b. the state transition at that state (``build_state`` seeds the work of
    an epoch boundary: participation, inactivity scores, slashings, an
    activation queue, exits): real keys for the sync committee and for 8
@@ -90,6 +91,22 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    kernel for each proposal); then every flush signed again on the ladder
    (``DUTY_SIGN_MIN`` at 0, all three field kernels), byte for byte the
    walk's, 64 of them ``api.sign``;
+3f. the node's observability on the same store: a ``ConsensusForensics``
+   plane attached, a forced cold ``get_head`` landing exactly one audit (a
+   memo hit none), a depth-0 reorg record from phase 3c's head to phase
+   3e's, a finality sample with the three participation flags; the first
+   1,024 aggregates of phase 3c's drain re-submitted with one item trace
+   each on the cached body (every field kernel launched): one
+   ``attestation_batch_verify`` span of 1,024 members (128 listed) in the
+   flight recorder, every member's ``verify`` event carrying its batch id
+   and an ``apply``, the forensics weight event carrying the same id, the
+   registry's admission->apply histogram 1,024 higher and its error count
+   unchanged, the Chrome export written to ``chiprun_out/trace_node.json``;
+   16 of them with one item's aggregation bits raising ``TypeError``: that
+   item's contained ignore verdict, the rest None, the error count 1
+   higher; then the warm drain of 1,024 with the registry, recorder and
+   plane on (traces minted) and off, and phase 3's warm state root timed
+   there in each polarity, printed beside the card's name and power limit;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -169,7 +186,7 @@ own no time fails the run (the block imports of phases 3b and 3c need both
 the SHA-256 kernel and the three field kernels; phase 3d's planes the
 SHA-256 kernel, its vector commitment the three field kernels; phase 3e's
 proposals the SHA-256 kernel, its re-signed flushes the three field
-kernels).  A call on
+kernels; phase 3f's traced and malformed drains the three field kernels).  A call on
 its default route through a size gate must launch every field kernel at or
 above the gate's threshold and none below it.  Needs one card, ``nvcc``,
 ``cuobjdump`` and ``g++``; exits nonzero without a card.  Longer records
@@ -285,6 +302,10 @@ SIGN_SWEEP, SIGN_PER_MESSAGE = (2048, 1024, 512, 128, 32, 8, 1), 16
 # every flush re-signed on the ladder and RESIGN_SAMPLE signatures against
 # api.sign
 DUTY_KEYS, DUTY_SLOTS, RESIGN_SAMPLE = 16_384, 2, 64
+# the node's observability (phase 3f): the first OBS_DRAIN aggregates of phase
+# 3c's drain re-submitted with an item trace each, OBS_CONTAIN of them with
+# one malformed
+OBS_DRAIN, OBS_CONTAIN = 1024, 16
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -720,7 +741,8 @@ def bls_phase(dev, rng, record: dict) -> dict:
     print(f"field kernel launches per drain: {launches[1]}")
 
     prof_s, busy_ms = _profiled(
-        lambda: batch_verify_each_cached(cache, entries, message_points=message_points))
+        lambda: batch_verify_each_cached(cache, entries, message_points=message_points),
+        attempts=2)
     print(_idle_line("drain", prof_s, busy_ms))
 
     # one aggregate signed by the wrong key: the bisection must blame it alone
@@ -901,21 +923,28 @@ def _peak_mib() -> float:
     return torch.cuda.max_memory_allocated() / 2**20
 
 
-def _profiled(fn) -> tuple[float, float]:
+def _profiled(fn, attempts: int = 1) -> tuple[float, float]:
     """Wall seconds and device-busy ms of one run of ``fn`` under
     ``torch.profiler``, tracing the device only (host events of ~10^5 tensor
-    ops take the profiler about a minute to post-process)."""
+    ops take the profiler about a minute to post-process).  For an ``fn``
+    that can run again unchanged, ``attempts`` > 1 takes a profile that
+    holds no device event again, up to that many runs in all (CUPTI has
+    once returned none for a run that launched kernels); a retry is
+    printed."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        _sync()
-        wall = time.perf_counter() - t0
-    busy = _device_busy_ms(prof)
-    if busy is None:
-        raise AssertionError("the profiler recorded no device time")
-    return wall, busy
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            _sync()
+            wall = time.perf_counter() - t0
+        busy = _device_busy_ms(prof)
+        if busy is not None:
+            return wall, busy
+        if attempt < attempts:
+            print(f"the profiler recorded no device time (run {attempt}); profiling again")
+    raise AssertionError(f"the profiler recorded no device time in {attempts} runs")
 
 
 def _total(launches: dict) -> int:
@@ -2029,9 +2058,210 @@ def duty_phase(dev, record: dict, card: str, spec, store, start_sks: dict,
     record["duties"] = out
 
 
+class _Unreadable:
+    """An aggregation bit that raises ``TypeError`` when read: the malformed
+    item of phase 3f's containment check (tests/test_torch_drain_containment.py
+    builds the same)."""
+
+    def __bool__(self):
+        raise TypeError("unreadable aggregation bit")
+
+
+def observability_phase(dev, record: dict, card: str, spec, store, drain: list,
+                        head_3c: bytes, root_polarity: dict) -> None:
+    """Phase 3f: the node's observability at 1,000,000 validators, on phase
+    3c's store as phase 3e left it (two blocks past phase 3c's head).
+
+    (a) A ``ConsensusForensics`` plane is attached and a cold ``get_head``
+    forced (``store.bump()``): exactly one audit lands, its head the head,
+    and a memo hit adds none; ``observe_transition(store, head_3c, head)``
+    mints a depth-0 record whose common ancestor is phase 3c's head;
+    ``observe_epoch`` returns the three participation flags; the
+    ``forkchoice_view`` size is printed.  (b) The first OBS_DRAIN aggregates
+    of phase 3c's drain are re-submitted with one ``new_trace`` each, on the
+    cached body on the card (every field kernel launched, every verdict
+    None): the recorder must hold one ``attestation_batch_verify`` span
+    (``n`` and ``n_members`` OBS_DRAIN, 128 listed members, ``path``
+    ``"cached"``), a ``verify`` event carrying its batch id and an ``apply``
+    on every member; the forensics weight event carries the same batch id;
+    the registry's ``attestation_admit_apply_seconds`` rose by OBS_DRAIN,
+    the span's histogram by 1, ``gossip_batch_error_count`` by nothing.  The
+    recorder's Chrome export lands in ``chiprun_out/trace_node.json``.  (c)
+    OBS_CONTAIN of those aggregates, one with aggregation bits that raise
+    ``TypeError`` when read: that item gets the contained ignore verdict,
+    the rest None, ``gossip_batch_error_count{stage="item"}`` rises by 1.
+    (d) The OBS_DRAIN drain warm, the median of ROUTE_REPS runs, with the
+    registry, recorder and forensics plane on and traces minted, then with
+    all three off and no traces; printed (not failed) beside the card's name
+    and power limit with ``root_polarity``, phase 3's warm state root timed
+    there in each polarity."""
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+    from lambda_ethereum_consensus_tpu_torch import tracing
+    from lambda_ethereum_consensus_tpu_torch.telemetry import get_metrics
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    metrics = get_metrics()
+    recorder = tracing.get_recorder()
+    for plane in (metrics, recorder):
+        if not plane.enabled:
+            raise AssertionError("the registry and the recorder must be on (TELEMETRY_OFF set?)")
+
+    # ---- (a) the audit of a forced cold walk, and the reorg record
+    store.forensics = forensics = FC.ConsensusForensics()
+    if not forensics.enabled:
+        raise AssertionError("the forensics plane is off (FORENSICS_OFF set?)")
+    store.bump()
+    t0 = time.perf_counter()
+    head = FC.get_head(store, spec)
+    cold_s = time.perf_counter() - t0
+    audits = forensics.stats()["rings"]["head_audit"]["appended_total"]
+    audit = forensics.last_audit()
+    t0 = time.perf_counter()
+    again = FC.get_head(store, spec)
+    memo_s = time.perf_counter() - t0
+    if audits != 1 or audit["head"] != "0x" + head.hex() or again != head or \
+            forensics.stats()["rings"]["head_audit"]["appended_total"] != 1:
+        raise AssertionError(f"cold walk: {audits} audits, audit head {audit and audit['head']}, "
+                             f"head {head.hex()}, memo hit {again.hex()}")
+    reorg = forensics.observe_transition(store, head_3c, head)
+    if reorg is None or reorg.depth != 0 or reorg.orphaned or \
+            reorg.common_ancestor != "0x" + head_3c.hex():
+        raise AssertionError(f"reorg record {reorg and reorg.to_dict()}")
+    t0 = time.perf_counter()
+    finality = forensics.observe_epoch(store, spec)
+    epoch_s = time.perf_counter() - t0
+    if finality is None or set(finality["participation"]) != {"source", "target", "head"}:
+        raise AssertionError(f"finality sample {finality}")
+    view = forensics.forkchoice_view(store, spec)
+    view_bytes = len(json.dumps(view))
+    print(f"forensics: cold get_head {cold_s:.3f} s, one audit ({len(audit['branch_points'])} "
+          f"branch points, {len(audit['filtered_out'])} filtered out), a memo hit "
+          f"{memo_s * 1e6:.1f} us and no audit; reorg record depth {reorg.depth}, common "
+          f"ancestor phase 3c's head (slot {reorg.ancestor_slot}) -> slot {reorg.slot}; "
+          f"observe_epoch {epoch_s:.3f} s: finality lag {finality['finality_lag_epochs']} "
+          f"epochs, participation {finality['participation']}, "
+          f"{len(finality['subnet_missing_votes'])} subnets; forkchoice_view "
+          f"{len(view['nodes'])} nodes, {view_bytes} bytes of JSON")
+
+    # ---- (b) the trace fan-in of one cached drain on the card
+    sub = drain[:OBS_DRAIN]
+
+    def hist_count(name: str, **labels) -> int:
+        got = metrics.get_histogram(name, **labels)
+        return 0 if got is None else got[3]
+
+    def errors() -> float:
+        return sum(metrics.get("gossip_batch_error_count", stage=stage)
+                   for stage in ("item", "context"))
+
+    span_labels = dict(n_devices=1, path="cached")
+    before = (hist_count("attestation_admit_apply_seconds"),
+              hist_count("attestation_batch_verify_seconds", **span_labels), errors())
+    recorder.clear()
+    traces = [tracing.new_trace("gossip_aggregate") for _ in sub]
+    verdicts, fan_s, fan_launches = _counted(
+        lambda: FC.on_attestation_batch(store, sub, spec=spec, traces=traces, device=dev),
+        "traced fork-choice drain")
+    for t in traces:
+        t.end("done")
+    if any(v is not None for v in verdicts):
+        raise AssertionError("the traced drain rejected valid aggregates")
+    snap = recorder.snapshot()
+    spans = [ev for ev in snap if ev["kind"] == "span"]
+    if len(spans) != 1 or spans[0]["name"] != "attestation_batch_verify":
+        raise AssertionError(f"{len(spans)} batch spans in the recorder")
+    args = spans[0]["args"]
+    batch = spans[0]["trace_id"]
+    if (args["n"], args["n_members"], len(args["members"]), args["path"]) != \
+            (OBS_DRAIN, OBS_DRAIN, min(128, OBS_DRAIN), "cached"):
+        raise AssertionError(f"the batch span's args {dict(args, members=len(args['members']))}")
+    members = {t.trace_id for t in traces}
+    verified = {ev["trace_id"] for ev in snap
+                if ev["name"] == "verify" and ev["args"] == {"batch": batch, "path": "cached"}}
+    applied = {ev["trace_id"] for ev in snap if ev["name"] == "apply"}
+    if verified != members or applied != members:
+        raise AssertionError(f"{len(verified)} members carry the batch id, {len(applied)} "
+                             f"applied, of {len(members)}")
+    weight = forensics._weight_events.list()[-1]
+    if (weight["batch"], weight["path"], weight["n"]) != (batch, "cached", OBS_DRAIN):
+        raise AssertionError(f"the forensics weight event {weight}")
+    after = (hist_count("attestation_admit_apply_seconds"),
+             hist_count("attestation_batch_verify_seconds", **span_labels), errors())
+    if (after[0] - before[0], after[1] - before[1], after[2] - before[2]) != (OBS_DRAIN, 1, 0):
+        raise AssertionError(f"registry before {before}, after {after}")
+    chrome = recorder.chrome()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "trace_node.json").write_text(json.dumps(chrome))
+    print(f"traced drain of {OBS_DRAIN} aggregates (cached body): {fan_s:.3f} s, "
+          f"{_total(fan_launches)} field launches {fan_launches}; one batch span (batch "
+          f"{batch}, {args['n_members']} members, {len(args['members'])} listed, "
+          f"{spans[0]['dur_us']} us), every member's verify event carries it and applied; "
+          f"the forensics weight event carries it; admit->apply +{OBS_DRAIN}, span +1, errors "
+          f"+0; chiprun_out/trace_node.json: {len(chrome['traceEvents'])} events "
+          f"({recorder.stats()['events']} ring entries)")
+
+    # ---- (c) one malformed item contained on the card
+    small = list(sub[:OBS_CONTAIN])
+    bad = small[OBS_CONTAIN // 2]
+    small[OBS_CONTAIN // 2] = bad.copy(
+        aggregation_bits=[_Unreadable()] * len(bad.aggregation_bits))
+    item_before = metrics.get("gossip_batch_error_count", stage="item")
+    verdicts, contain_s, contain_launches = _counted(
+        lambda: FC.on_attestation_batch(store, small, spec=spec, device=dev),
+        "fork-choice drain with a malformed item")
+    contained = verdicts[OBS_CONTAIN // 2]
+    want = "attestation drain internal error: TypeError: unreadable aggregation bit"
+    others = [v for i, v in enumerate(verdicts) if i != OBS_CONTAIN // 2]
+    counted = metrics.get("gossip_batch_error_count", stage="item") - item_before
+    if contained is None or str(contained) != want or contained.reject or \
+            any(v is not None for v in others) or counted != 1:
+        raise AssertionError(f"containment: {contained!r}, others {others}, counted {counted}")
+    print(f"drain of {OBS_CONTAIN} with one malformed item (cached body): {contain_s:.3f} s; "
+          f"that item ignored ({want!r}), the other {len(others)} None, "
+          f"gossip_batch_error_count{{stage=item}} +1")
+
+    # ---- (d) what the plane costs: the warm drain and the root, on and off
+    def traced():
+        ts = [tracing.new_trace("gossip_aggregate") for _ in sub]
+        got = FC.on_attestation_batch(store, sub, spec=spec, traces=ts, device=dev)
+        for t in ts:
+            t.end("done")
+        return _drain_verdicts(got)
+
+    on_s, got_on = _median_run(traced)
+    for plane in (metrics, recorder, forensics):
+        plane.set_enabled(False)
+    try:
+        off_s, got_off = _median_run(lambda: _drain_verdicts(
+            FC.on_attestation_batch(store, sub, spec=spec, device=dev)))
+    finally:
+        for plane in (metrics, recorder, forensics):
+            plane.set_enabled(True)
+    if got_on != got_off or any(v is not None for v in got_on):
+        raise AssertionError("the drain's verdicts differ between the polarities")
+    print(f"observability cost, drain of {OBS_DRAIN} aggregates warm (median of {ROUTE_REPS}): "
+          f"on (registry, recorder, forensics, traces) {on_s:.4f} s, off {off_s:.4f} s "
+          f"({(on_s - off_s) * 1e3:+.1f} ms) [{card}]")
+    print(f"observability cost, phase 3's warm state root (one each, timed in phase 3): "
+          f"ssz_hash_tree_root span on {root_polarity['on_s']:.4f} s, off "
+          f"{root_polarity['off_s']:.4f} s ({(root_polarity['on_s'] - root_polarity['off_s']) * 1e3:+.1f} ms) "
+          f"[{card}]")
+    out.update(cold_get_head_s=cold_s, memo_get_head_s=memo_s, branch_points=len(audit["branch_points"]),
+               filtered_out=len(audit["filtered_out"]), reorg=reorg.to_dict(), observe_epoch_s=epoch_s,
+               finality=finality, view_nodes=len(view["nodes"]), view_bytes=view_bytes,
+               traced_drain_s=fan_s, traced_launches=fan_launches, batch_span_us=spans[0]["dur_us"],
+               trace_events=len(chrome["traceEvents"]), contain_s=contain_s,
+               drain_on_s=on_s, drain_off_s=off_s, root_on_s=root_polarity["on_s"],
+               root_off_s=root_polarity["off_s"], seconds=time.perf_counter() - t_phase)
+    record["observability"] = out
+
+
 class _MetricCounts:
     """A metrics sink for the witness modules: counts each ``inc`` by name
-    and labels, and each ``observe`` as ``<name>_count``."""
+    and labels, each ``observe`` as ``<name>_count`` and each span as
+    ``<name>_seconds_count``."""
 
     def __init__(self):
         self.counts = Counter()
@@ -2046,6 +2276,11 @@ class _MetricCounts:
 
     def set_gauge(self, name, value, **labels):
         pass
+
+    @contextlib.contextmanager
+    def span(self, name, slow=None, **labels):
+        yield
+        self.observe(name + "_seconds", 0.0, **labels)
 
     def get(self, name, **labels) -> int:
         return self.counts[(name, tuple(sorted(labels.items())))]
@@ -2200,7 +2435,7 @@ def witness_phase(dev, rng, record: dict, state, root: bytes, spec) -> tuple[dic
         sample = [int(i) for i in rng.choice(len(proofs), WITNESS_SAMPLE, replace=False)]
         if not all(mp.verify_host(proofs[i], root) for i in sample):
             raise AssertionError("the per-proof oracle rejected a sampled proof")
-        wall, busy = _profiled(lambda: V.verify_batch(proofs, root, device=dev))
+        wall, busy = _profiled(lambda: V.verify_batch(proofs, root, device=dev), attempts=2)
         out.update(profiled_s=wall, device_busy_ms=busy, idle_share=1 - busy / 1e3 / wall)
         print(f"verify_batch of {len(proofs)} on the card: cold {out['verify_cold_s']:.3f} s, "
               f"warm {out['verify_warm_s']:.3f} s, {rounds} SHA-256 launches (== the plane's "
@@ -2422,7 +2657,8 @@ def sign_phase(dev, rng, record: dict) -> dict:
     sample = [0, 1, SIGNERS // 2, SIGNERS - 1]
     if [api.sign(sks[i], messages[i]) for i in sample] != [sigs[i] for i in sample]:
         raise AssertionError("device signatures != api.sign on a sample")
-    wall, busy = _profiled(lambda: G2.g2_affine(G2.g2_ladder(points, scalars, 256, dev)))
+    wall, busy = _profiled(lambda: G2.g2_affine(G2.g2_ladder(points, scalars, 256, dev)),
+                           attempts=2)
     peak = _peak_mib()
     print(f"sign flush of {SIGNERS} signatures ({DUTY_MESSAGES} messages x {per_msg} signers, "
           f"256-bit ladder, {-(-SIGNERS // S.SIGN_CHUNK)} dispatch): cold {flushes[0][1]:.3f} s, "
@@ -2496,7 +2732,8 @@ def sets_phase(dev, rng, record: dict, duty: dict) -> dict:
         ok, warm_s, warm_launches = _counted(
             lambda: B.verify_points(single, message_points=memo, device=dev),
             "verify_points (one entry, warm)")
-        wall, busy = _profiled(lambda: B.verify_points(entries, message_points=memo, device=dev))
+        wall, busy = _profiled(lambda: B.verify_points(entries, message_points=memo, device=dev),
+                               attempts=2)
     t0 = time.perf_counter()
     host_ok = B.verify_points(single, message_points=memo, host=True)
     host_s = time.perf_counter() - t0
@@ -3059,7 +3296,8 @@ def kzg_phase(dev, rng, record: dict, setup) -> bytes:
     per_blob_s = time.perf_counter() - t0
     if folded is not False or per_blob != [i != bad for i in range(N_BLOBS)]:
         raise AssertionError(f"swapped proof: fold {folded}, per blob {per_blob}")
-    wall, busy = _profiled(lambda: K.blob_to_commitment(blobs[0], setup, device=dev))
+    wall, busy = _profiled(lambda: K.blob_to_commitment(blobs[0], setup, device=dev),
+                           attempts=2)
     peak = _peak_mib()
     print(f"{N_BLOBS} commitments at width {BLOB_WIDTH} == [sum blob_i L_i(tau)] G1 (and blob 0 "
           f"== the per-term host MSM, {per_term_s:.1f} s on the host)")
@@ -3398,6 +3636,17 @@ def main() -> int:
         seconds.append(time.perf_counter() - t0)
         launches.append(sops.sha256_kernel_launches)
     subtree_calls = backend.subtree_calls
+    # one warm root in each polarity of the registry (the ssz_hash_tree_root
+    # span), for phase 3f
+    from lambda_ethereum_consensus_tpu_torch.telemetry import get_metrics
+
+    root_polarity = {}
+    for polarity in ("off", "on"):
+        get_metrics().set_enabled(polarity == "on")
+        t0 = time.perf_counter()
+        roots.append(state.hash_tree_root(spec))
+        root_polarity[polarity + "_s"] = time.perf_counter() - t0
+    get_metrics().set_enabled(True)
     timed = _TimedBackend(backend)
     t0 = time.perf_counter()
     with _recording(sops, "sha256_nodes", lambda blocks: int(blocks.shape[0])) as sha_lanes:
@@ -3410,7 +3659,7 @@ def main() -> int:
     t0 = time.perf_counter()
     reference = state.hash_tree_root(spec)
     hashlib_s = time.perf_counter() - t0
-    if not roots[0] == roots[1] == timed_root == reference:
+    if not all(r == reference for r in roots) or timed_root != reference:
         raise AssertionError(f"device roots {[r.hex() for r in roots]} != hashlib {reference.hex()}")
     if not launches[0] or launches[0] != launches[1] or not subtree_calls:
         raise AssertionError(f"main path missed the kernel: launches {launches}, "
@@ -3440,9 +3689,18 @@ def main() -> int:
     del transition["start"], key_points, compressed
 
     # ---- phase 3e: the validator duty engine on phase 3c's store
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+
+    head_3c = FC.get_head(node_routes["store"], spec)
     t0 = time.perf_counter()
     duty_phase(dev, record, card, spec, node_routes["store"], transition["start_sks"], keys)
     print(f"duty-engine phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3f: the node's observability on the same store
+    t0 = time.perf_counter()
+    observability_phase(dev, record, card, spec, node_routes["store"], node_routes["drain"],
+                        head_3c, root_polarity)
+    print(f"observability phase {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 3d: the witness plane, at phase 3b's walk-end state
     t0 = time.perf_counter()

@@ -28,6 +28,11 @@ term, ``_msm(..., host=True)``): affine coordinates are unique, so equal group m
 means equal verdicts and equal compressed bytes.  The pairings run on the
 host (:func:`..crypto.bls.pairing.pairing_check`).
 
+Telemetry, as in the JAX package: the ``kzg_verify`` span around each
+verification's folding and pairing check, ``kzg_blobs_verified_total``
+by result (``ok``/``reject``), and ``kzg_msm_total`` terms by path
+(``device``: the card's ladder; ``host``: the host oracle).
+
 **Trusted setup**: :func:`dev_setup` derives tau from SHA-256 — a DEV-ONLY
 insecure ceremony (tau is public!) that makes commitments reproducible
 across processes and needs no download; :func:`load_trusted_setup` ingests
@@ -52,6 +57,7 @@ from ..crypto.bls.fields import R
 from ..crypto.bls.pairing import pairing_check
 from ..ops.bls_g1 import SCALAR_BITS, batch_inv_mod, g1_affine, g1_ladder
 from ..ops.sha256 import resolve_device
+from ..telemetry import inc, span
 
 __all__ = [
     "KzgError",
@@ -236,8 +242,11 @@ def _mul_batch(pairs: list, device=None, nbits: int = SCALAR_BITS, host: bool = 
     if any(k % R >> nbits for _, k in pairs):
         raise KzgError(f"scalar wider than the {nbits}-bit ladder")
     if host:
+        inc("kzg_msm_total", len(pairs), path="host")
         return [C.g1.multiply(pt, k) if pt is not None else None for pt, k in pairs]
-    return _mul_batch_device(pairs, nbits, device)
+    out = _mul_batch_device(pairs, nbits, device)
+    inc("kzg_msm_total", len(pairs), path="device")
+    return out
 
 
 def _g1_sum(points):
@@ -383,9 +392,12 @@ def verify_proof(
         q_pt = C.g1_from_bytes(proof)
     except C.DeserializationError:
         return False
-    p_min_y = C.g1.affine_add(c_pt, C.g1.affine_neg(C.g1.multiply(C.G1_GENERATOR, y)))
-    x_min_z = C.g2.affine_add(setup.g2_tau, C.g2.affine_neg(C.g2.multiply(C.G2_GENERATOR, z)))
-    return pairing_check([(p_min_y, C.G2_GENERATOR), (C.g1.affine_neg(q_pt), x_min_z)])
+    with span("kzg_verify"):
+        p_min_y = C.g1.affine_add(c_pt, C.g1.affine_neg(C.g1.multiply(C.G1_GENERATOR, y)))
+        x_min_z = C.g2.affine_add(setup.g2_tau, C.g2.affine_neg(C.g2.multiply(C.G2_GENERATOR, z)))
+        ok = pairing_check([(p_min_y, C.G2_GENERATOR), (C.g1.affine_neg(q_pt), x_min_z)])
+    inc("kzg_blobs_verified_total", 1, result="ok" if ok else "reject")
+    return ok
 
 
 def verify_blob_proof(
@@ -442,23 +454,28 @@ def verify_blob_batch(
         c_pts = [C.g1_from_bytes(b) for b in commitments]
         q_pts = [C.g1_from_bytes(b) for b in proofs]
     except C.DeserializationError:
+        inc("kzg_blobs_verified_total", n, result="reject")
         return False
     try:
         evals = [blob_to_field_elements(b, setup.width) for b in blobs]
     except KzgError:
+        inc("kzg_blobs_verified_total", n, result="reject")
         return False
     zs = [_compute_challenge(b, cb, setup.width) for b, cb in zip(blobs, commitments)]
     ys = [_eval_at(e, z, setup.domain) for e, z in zip(evals, zs)]
     rs = _fold_scalars(commitments, zs, ys, proofs)
-    # C' = sum r_i C_i + sum (r_i z_i) Q_i - (sum r_i y_i) G1
-    # Q' = sum r_i Q_i           -- all 3n+1 products in one dispatch
-    pairs = (
-        [(pt, r) for pt, r in zip(c_pts, rs)]
-        + [(pt, r * z % R) for pt, r, z in zip(q_pts, rs, zs)]
-        + [(C.G1_GENERATOR, (R - sum(r * y % R for r, y in zip(rs, ys)) % R) % R)]
-        + [(pt, r) for pt, r in zip(q_pts, rs)]
-    )
-    prods = _mul_batch(pairs, device)
-    c_fold = _g1_sum(prods[: 2 * n + 1])
-    q_fold = _g1_sum(prods[2 * n + 1 :])
-    return pairing_check([(c_fold, C.G2_GENERATOR), (C.g1.affine_neg(q_fold), setup.g2_tau)])
+    with span("kzg_verify"):
+        # C' = sum r_i C_i + sum (r_i z_i) Q_i - (sum r_i y_i) G1
+        # Q' = sum r_i Q_i           -- all 3n+1 products in one dispatch
+        pairs = (
+            [(pt, r) for pt, r in zip(c_pts, rs)]
+            + [(pt, r * z % R) for pt, r, z in zip(q_pts, rs, zs)]
+            + [(C.G1_GENERATOR, (R - sum(r * y % R for r, y in zip(rs, ys)) % R) % R)]
+            + [(pt, r) for pt, r in zip(q_pts, rs)]
+        )
+        prods = _mul_batch(pairs, device)
+        c_fold = _g1_sum(prods[: 2 * n + 1])
+        q_fold = _g1_sum(prods[2 * n + 1 :])
+        ok = pairing_check([(c_fold, C.G2_GENERATOR), (C.g1.affine_neg(q_fold), setup.g2_tau)])
+    inc("kzg_blobs_verified_total", n, result="ok" if ok else "reject")
+    return ok

@@ -5,8 +5,10 @@ The port's copy of the JAX package's ``fork_choice`` package:
 (``on_tick`` / ``on_block`` / ``on_attestation`` / ``on_attestation_batch``
 / ``on_attester_slashing``), :mod:`.head` (``get_head`` with batched
 vote-weight accumulation), :mod:`.tree` (incremental cached-head fork
-tree) and :mod:`.attestation` (epoch contexts over the device committee
-cache).  The JAX package's forensics plane is not ported.
+tree), :mod:`.attestation` (epoch contexts over the device committee
+cache) and :mod:`.forensics` (the consensus audit plane: head-decision
+audits, reorg post-mortems, finality-lag decomposition, equivocation
+evidence).
 """
 
 from .attestation import (
@@ -16,6 +18,7 @@ from .attestation import (
     get_state_attestation_context,
     registry_planes,
 )
+from .forensics import ConsensusForensics, ReorgRecord
 from .handlers import (
     attestation_batch_target,
     on_attestation,
@@ -29,11 +32,13 @@ from .store import ForkChoiceError, LatestMessage, Store, checkpoint_key, get_fo
 from .tree import ForkTree, HeadCache
 
 __all__ = [
+    "ConsensusForensics",
     "EpochAttestationContext",
     "ForkChoiceError",
     "ForkTree",
     "HeadCache",
     "LatestMessage",
+    "ReorgRecord",
     "Store",
     "attestation_batch_target",
     "checkpoint_key",

@@ -1,10 +1,9 @@
 """Epoch-scoped attestation verification context — the node path's bridge
 from fork choice to the device committee cache.
 
-The port's copy of the JAX package's ``fork_choice/attestation.py``, without
-the telemetry counters.  Committee membership is fixed per epoch (the
-shuffling seed feeding ``get_beacon_committee``), so per target checkpoint
-we precompute
+The port's copy of the JAX package's ``fork_choice/attestation.py``.
+Committee membership is fixed per epoch (the shuffling seed feeding
+``get_beacon_committee``), so per target checkpoint we precompute
 
 - the epoch's full committee table as ONE numpy matrix (one cached
   shuffling permutation, sliced — no per-committee Python walks),
@@ -32,6 +31,7 @@ from ..ops.sha256 import resolve_device
 from ..state_transition import accessors, misc
 from ..state_transition.errors import SpecError
 from ..state_transition.mutable import BeaconStateMut
+from ..telemetry import get_metrics
 
 __all__ = [
     "EpochAttestationContext",
@@ -227,7 +227,9 @@ _STATE_CTX_CAP = 7
 _STORE_CTX_CAP = 8  # a node tracks current+previous epoch targets
 
 
-def _evict_oldest_epoch(cache: dict, cap: int, epoch_of, keep=None) -> None:
+def _evict_oldest_epoch(
+    cache: dict, cap: int, epoch_of, keep=None, kind: str = "store"
+) -> None:
     """Oldest-epoch LRU eviction down to ``cap`` entries.
 
     The victim is the entry with the SMALLEST epoch; recency (dict
@@ -238,7 +240,9 @@ def _evict_oldest_epoch(cache: dict, cap: int, epoch_of, keep=None) -> None:
     passes its just-inserted key: a backfill segment older than every
     cached epoch would otherwise insert-and-self-evict on EVERY block.
     The gossip getter does NOT — there a stale-epoch straggler is the
-    right victim.
+    right victim.  Each eviction counts
+    ``attestation_context_evictions_count{cache=kind}``: a hot-context
+    victim means the cap is too small for the fork pattern on gossip.
     """
     while len(cache) > cap:
         victim = min(
@@ -246,6 +250,7 @@ def _evict_oldest_epoch(cache: dict, cap: int, epoch_of, keep=None) -> None:
             key=lambda item: (epoch_of(item[1]), item[0]),
         )[1]
         del cache[victim]
+        get_metrics().inc("attestation_context_evictions_count", cache=kind)
 
 
 def get_state_attestation_context(
@@ -274,7 +279,7 @@ def get_state_attestation_context(
         _STATE_CTX[key] = ctx  # refresh recency
         return ctx
     ctx = _STATE_CTX[key] = EpochAttestationContext(state, int(epoch), spec, dev)
-    _evict_oldest_epoch(_STATE_CTX, _STATE_CTX_CAP, lambda k: k[1], keep=key)
+    _evict_oldest_epoch(_STATE_CTX, _STATE_CTX_CAP, lambda k: k[1], keep=key, kind="state")
     return ctx
 
 

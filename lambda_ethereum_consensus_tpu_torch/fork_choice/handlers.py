@@ -13,12 +13,26 @@ own size constant).
 The entry points that reach the device (``on_block``, ``on_attestation``,
 ``on_attestation_batch``) take ``device``: ``None`` means the card, resolved
 first at every batch size, and they raise where it is absent; ``"cpu"``
-runs the plain PyTorch versions.  Left out of the JAX package's module: the
-forensics plane, trace fan-in, the sharded drain, and the device-fault
-containment (a device error raises; nothing is retried on the host).
+runs the plain PyTorch versions.
+
+Observability, as in the JAX package: the drain runs inside the
+``attestation_batch_verify`` span, links its member item traces to the
+batch (``traces=``, :func:`..tracing.record_verify_batch`) and logs the
+batch as a weight event on the store's forensics plane, which also hears
+every checkpoint advance, accepted block and attester slashing.  One bad
+item's unexpected exception becomes that item's ignore verdict
+(:class:`_DrainContainment`), counted in ``gossip_batch_error_count``,
+and the rest of the drain goes on — except a ``RuntimeError`` (a kernel,
+native or CUDA fault), which raises: the port surfaces device faults where
+the JAX package contains them too.  Left out of the JAX package's module:
+the sharded drain and the device-fault fallback (nothing is retried on the
+host).
 """
 
 from __future__ import annotations
+
+import logging
+import time as _time
 
 import numpy as np
 
@@ -33,6 +47,8 @@ from ..state_transition.predicates import (
     is_slashable_attestation_data,
     is_valid_indexed_attestation,
 )
+from ..telemetry import get_metrics, span
+from ..tracing import record_verify_batch
 from ..types.beacon import Attestation, AttesterSlashing, Checkpoint, SignedBeaconBlock
 from .store import ForkChoiceError, LatestMessage, Store, checkpoint_key
 
@@ -51,6 +67,8 @@ __all__ = [
     "update_latest_messages_batch",
     "validate_on_attestation",
 ]
+
+log = logging.getLogger("fork_choice")
 
 
 def expect(cond: bool, reason: str) -> None:
@@ -86,12 +104,17 @@ def _on_tick_per_slot(store: Store, time: int, spec: ChainSpec) -> None:
 
 
 def update_checkpoints(store: Store, justified: Checkpoint, finalized: Checkpoint) -> None:
+    forensics = getattr(store, "forensics", None)
     if justified.epoch > store.justified_checkpoint.epoch:
         store.justified_checkpoint = justified
         store.bump()
+        if forensics is not None:
+            forensics.note_justified(int(justified.epoch), bytes(justified.root))
     if finalized.epoch > store.finalized_checkpoint.epoch:
         store.finalized_checkpoint = finalized
         store.bump()
+        if forensics is not None:
+            forensics.note_finalized(int(finalized.epoch), bytes(finalized.root))
         if store.head_cache is not None:
             store.head_cache.prune(bytes(finalized.root))
         # checkpoint states + attestation contexts below the finalized
@@ -142,6 +165,12 @@ def on_block(
     )
     root = block.hash_tree_root(spec)
     store.add_block(root, block, state)
+    forensics = getattr(store, "forensics", None)
+    if forensics is not None:
+        # evidence ledger: a second distinct root for (slot, proposer)
+        # is a double proposal — observed here, AFTER full validation,
+        # so only blocks that actually entered fork choice count
+        forensics.note_block(root, int(block.slot), int(block.proposer_index))
 
     # proposer boost for timely blocks (first 1/INTERVALS_PER_SLOT of the slot)
     time_into_slot = (store.time - store.genesis_time) % spec.SECONDS_PER_SLOT
@@ -304,6 +333,7 @@ def on_attestation_batch(
     attestations: list[Attestation],
     is_from_block: bool = False,
     spec: ChainSpec | None = None,
+    traces: list | None = None,
     device=None,
 ) -> list[ForkChoiceError | None]:
     """Record many attestations with batched signature checks, ``device``
@@ -319,15 +349,61 @@ def on_attestation_batch(
     latest-message/head-cache batch path.  A smaller batch takes the host
     body.  Returns one ``None`` (accepted) or ``ForkChoiceError``
     (rejected; ``reject`` True for a protocol violation) per input.
+
+    The body runs inside ``span("attestation_batch_verify", path=...,
+    n_devices=1)``, ``path`` the body taken (``"cached"`` or ``"host"``).
+    ``traces`` (position-aligned with ``attestations``, entries may be
+    None) links this batched verify back to its member item traces: the
+    batch span carries the member trace ids, each member records the batch
+    id plus its outcome (``apply`` + the admission→apply latency histogram,
+    or ``drop`` with the error).  A store with a forensics plane logs the
+    batch as a weight event carrying that batch id (None without live
+    traces).
     """
     spec = spec or get_chain_spec()
     dev = resolve_device(device)
     results: list[ForkChoiceError | None] = [None] * len(attestations)
-    if attestations:
-        cached = len(attestations) >= attestation_batch_target()
-        body = _attestation_batch_cached if cached else _attestation_batch_host
-        body(store, attestations, is_from_block, spec, results, dev)
+    cached = bool(attestations) and len(attestations) >= attestation_batch_target()
+    path = "cached" if cached else "host"
+    live_traces = traces is not None and any(t is not None for t in traces)
+    t0 = _time.monotonic() if live_traces else 0.0
+    with span("attestation_batch_verify", path=path, n_devices=1):
+        if attestations:
+            body = _attestation_batch_cached if cached else _attestation_batch_host
+            body(store, attestations, is_from_block, spec, results, dev)
+    batch_id = None
+    if live_traces:
+        batch_id = record_verify_batch(
+            traces, results, path, t0, _time.monotonic() - t0, n_devices=1
+        )
+    forensics = getattr(store, "forensics", None)
+    if forensics is not None and attestations:
+        # weight-event log: this batch is a reorg-attribution candidate;
+        # batch_id joins it to the flight recorder's batch span (None
+        # when tracing was off — the forensic record still lands)
+        forensics.note_attestation_batch(batch_id, path, len(attestations))
     return results
+
+
+class _DrainContainment:
+    """Per-item containment for UNEXPECTED drain errors: wrap the
+    exception into an ignore-polarity verdict so one bad message never
+    drops the whole gossip batch, count it, and log the first traceback per
+    drain — a systemic failure stays diagnosable without thousands of
+    traceback copies.  A ``RuntimeError`` (a kernel, native or CUDA fault,
+    ``torch.OutOfMemoryError``) is never contained: the drain bodies
+    re-raise it before they reach :meth:`verdict`."""
+
+    def __init__(self, where: str):
+        self.where = where
+        self.logged = False
+
+    def verdict(self, e: Exception, count: int = 1, stage: str = "item"):
+        if not self.logged:
+            self.logged = True
+            log.exception("unexpected error in %s", self.where)
+        get_metrics().inc("gossip_batch_error_count", value=count, stage=stage)
+        return ForkChoiceError(f"attestation drain internal error: {type(e).__name__}: {e}")
 
 
 def _attestation_batch_host(store, attestations, is_from_block, spec, results, dev) -> None:
@@ -344,6 +420,7 @@ def _attestation_batch_host(store, attestations, is_from_block, spec, results, d
     from ..state_transition.predicates import indexed_attestation_signature_inputs
 
     prepared = []  # (i, attestation, indexed, point entry)
+    contain = _DrainContainment("host attestation drain")
     for i, attestation in enumerate(attestations):
         try:
             validate_on_attestation(store, attestation, is_from_block, spec)
@@ -360,13 +437,20 @@ def _attestation_batch_host(store, attestations, is_from_block, spec, results, d
             sig_pt = g2_from_bytes(bytes(indexed.signature))
             prepared.append((i, attestation, indexed, (agg_pk, signing_root, sig_pt)))
         except ForkChoiceError as e:
+            # keep the original verdict (its reject polarity matters)
             results[i] = e
         except (BlsError, DeserializationError) as e:
+            # undecodable signature / bad point: protocol violation
             results[i] = ForkChoiceError(str(e), reject=True)
-        except (SpecError, ValueError) as e:
-            # unknown block, timing, committee mismatch, a bad bitfield
-            # buffer: could be a race or missing context — ignore
+        except SpecError as e:
+            # unknown block, timing, committee mismatch: could be a race
+            # or missing context — ignore, don't penalize
             results[i] = ForkChoiceError(str(e))
+        except RuntimeError:
+            raise  # a device or native fault is surfaced, never contained
+        except Exception as e:
+            # unexpected (e.g. an IndexError from a malformed bitfield)
+            results[i] = contain.verdict(e)
     if not prepared:
         return
     flags = batch_verify_each_points([entry for _, _, _, entry in prepared], device=dev)
@@ -395,6 +479,7 @@ def _attestation_batch_cached(store, attestations, is_from_block, spec, results,
     from .attestation import get_attestation_context
 
     pending = []  # (i, att, ctx, cid, attesting, missing, sroot, target_state)
+    contain = _DrainContainment("cached attestation drain")
     for i, attestation in enumerate(attestations):
         try:
             validate_on_attestation(store, attestation, is_from_block, spec)
@@ -416,6 +501,11 @@ def _attestation_batch_cached(store, attestations, is_from_block, spec, results,
             # unknown block, timing, committee mismatch, a bad bitfield
             # buffer: could be a race or missing context — ignore
             results[i] = ForkChoiceError(str(e))
+        except RuntimeError:
+            raise  # a device or native fault is surfaced, never contained
+        except Exception as e:
+            # unexpected (e.g. a TypeError from a malformed bitfield)
+            results[i] = contain.verdict(e)
 
     # one decompression pass (the native thread pool) — AFTER validation,
     # so junk that fork choice rejects anyway costs nothing
@@ -453,7 +543,12 @@ def _attestation_batch_cached(store, attestations, is_from_block, spec, results,
         except (SpecError, ValueError) as e:
             # ctx.device_cache() can raise here (an invalid registry pubkey,
             # inconsistent cache shapes): fail the item, not the batch
+            get_metrics().inc("gossip_batch_error_count", stage="item")
             results[i] = ForkChoiceError(str(e))
+        except RuntimeError:
+            raise
+        except Exception as e:  # unexpected: contain to the item
+            results[i] = contain.verdict(e)
 
     accepted = []  # (batch index, ctx, attestation, attesting array)
     for ctx_id, group in by_ctx.items():
@@ -466,6 +561,7 @@ def _attestation_batch_cached(store, attestations, is_from_block, spec, results,
             )
         except (SpecError, ValueError) as e:
             # fail THIS context's items, not the whole batch
+            get_metrics().inc("gossip_batch_error_count", value=len(group), stage="context")
             for i, _, _, _ in group:
                 results[i] = ForkChoiceError(str(e))
             continue
@@ -552,3 +648,6 @@ def on_attester_slashing(
     if store.head_cache is not None:
         for i in equivocators:
             store.head_cache.on_equivocation(i)
+    forensics = getattr(store, "forensics", None)
+    if forensics is not None:
+        forensics.note_attester_slashing(equivocators)

@@ -1,7 +1,9 @@
 """LMD-GHOST head selection (ref: lib/.../fork_choice/helpers.ex:53-193).
 
-The port's copy of the JAX package's ``fork_choice/head.py``, without the
-telemetry span and the forensics audit of the cold walk.
+The port's copy of the JAX package's ``fork_choice/head.py``: only the cold
+walk is timed (``fork_choice_head_recompute``) and audited (the store's
+forensics plane, when one is attached); a memo hit stays O(1) with no
+instrumentation.
 
 ``get_weight`` in the reference is an O(validators) Elixir scan per tree node
 (helpers.ex:75-90).  Here one batched pass groups the latest messages by vote
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 from ..config import ChainSpec, constants, get_chain_spec
 from ..state_transition import accessors, misc
+from ..telemetry import span
 from .store import Store, checkpoint_key
 
 
@@ -143,17 +146,64 @@ def get_head(store: Store, spec: ChainSpec | None = None) -> bytes:
     memo_key = _memo_key(store, spec)
     if store.head_memo is not None and store.head_memo[0] == memo_key:
         return store.head_memo[1]
-    blocks = get_filtered_block_tree(store, spec)
-    head = bytes(store.justified_checkpoint.root)
-    # one vote scan per head call; the walk reuses it at every level
-    vote_weights = _vote_weights_by_root(store, spec)
-    while True:
-        children = [root for root in store.children.get(head, []) if root in blocks]
-        if not children:
-            store.head_memo = (memo_key, head)
-            return head
-        # weight-descending, root as tiebreak (spec: lexicographic max)
-        head = max((_subtree_weight(store, r, vote_weights, spec), r) for r in children)[1]
+    # the forensics audit hook rides ONLY the cold walk: memo hits stay
+    # O(1) with zero instrumentation cost, and the scored lists
+    # below are the same _subtree_weight calls max() would have made
+    forensics = getattr(store, "forensics", None)
+    if forensics is not None and not forensics.enabled:
+        forensics = None
+    branch_points: list | None = [] if forensics is not None else None
+    # only the cold walk is spanned: a memo hit must stay O(1) with zero
+    # instrumentation cost (it runs per API request and per tick)
+    with span("fork_choice_head_recompute"):
+        blocks = get_filtered_block_tree(store, spec)
+        head = bytes(store.justified_checkpoint.root)
+        # one vote scan per head call; the walk reuses it at every level
+        vote_weights = _vote_weights_by_root(store, spec)
+        boost = bytes(store.proposer_boost_root)
+        while True:
+            children = [
+                root for root in store.children.get(head, []) if root in blocks
+            ]
+            if not children:
+                store.head_memo = (memo_key, head)
+                if branch_points is not None:
+                    forensics.note_head_audit(
+                        slot=store.current_slot(spec),
+                        head=head,
+                        branch_points=branch_points,
+                        # filter verdicts: stored blocks the viability
+                        # filter rejected from the walked tree (capped)
+                        filtered_out=[
+                            r for r in store.blocks if r not in blocks
+                        ][:16],
+                    )
+                return head
+            # weight-descending, root as tiebreak (spec: lexicographic max)
+            scored = [
+                (_subtree_weight(store, r, vote_weights, spec), r)
+                for r in children
+            ]
+            if branch_points is not None and len(scored) > 1:
+                branch_points.append({
+                    "parent": "0x" + head.hex(),
+                    "candidates": [
+                        {
+                            "root": "0x" + r.hex(),
+                            "weight": int(w),
+                            "boost": (
+                                get_proposer_score(store, spec)
+                                if boost != b"\x00" * 32
+                                and store.get_ancestor(
+                                    boost, store.blocks[r].slot
+                                ) == r
+                                else 0
+                            ),
+                        }
+                        for w, r in sorted(scored, reverse=True)
+                    ],
+                })
+            head = max(scored)[1]
 
 
 def _memo_key(store: Store, spec: ChainSpec) -> tuple:
@@ -168,17 +218,21 @@ def _memo_key(store: Store, spec: ChainSpec) -> tuple:
 
 def head_candidates(store: Store, spec: ChainSpec | None = None) -> dict:
     """Cheap head snapshot off the existing ``(mutations, slot)`` memo.
-    NEVER forces an uncached full recompute: a stale memo is reported as
-    ``fresh: false`` with the last memoized head.  ``last_audit`` is the
-    JAX package's forensics audit, which the port does not carry: always
-    None."""
+    NEVER forces an
+    uncached full recompute: a stale memo is reported as ``fresh:
+    false`` with the last memoized head, and the candidate detail comes
+    from the forensics plane's last cold-walk audit (None until the
+    first recompute lands)."""
     spec = spec or get_chain_spec()
     memo = store.head_memo
     fresh = memo is not None and memo[0] == _memo_key(store, spec)
+    forensics = getattr(store, "forensics", None)
     return {
         "head": "0x" + memo[1].hex() if memo is not None else None,
         "fresh": bool(fresh),
         "mutations": int(store.mutations),
         "slot": int(store.current_slot(spec)),
-        "last_audit": None,
+        "last_audit": (
+            forensics.last_audit() if forensics is not None else None
+        ),
     }

@@ -1,7 +1,6 @@
 """The fork-choice Store (ref: lib/ssz_types/store.ex:1-61).
 
-The port's copy of the JAX package's ``fork_choice/store.py``, without the
-telemetry counter.
+The port's copy of the JAX package's ``fork_choice/store.py``.
 
 A host-side mutable object — fork choice is branchy, latency-sensitive
 control flow that stays on CPU (SURVEY.md §2.3); only the vote-weight
@@ -15,6 +14,7 @@ from dataclasses import dataclass, field
 from ..config import ChainSpec, constants, get_chain_spec
 from ..state_transition import accessors, misc
 from ..state_transition.errors import SpecError
+from ..telemetry import get_metrics
 from ..types.beacon import BeaconBlock, BeaconState, Checkpoint
 from .tree import HeadCache
 
@@ -110,9 +110,13 @@ class Store:
         every finalized-checkpoint advance (handlers.update_checkpoints).
         Attestation contexts are keyed ``(epoch, root, device)``.
         """
+        pruned = 0
         for cache in (self.checkpoint_states, self.attestation_contexts):
             for key in [k for k in cache if k[0] < finalized_epoch]:
                 del cache[key]
+                pruned += 1
+        if pruned:
+            get_metrics().inc("checkpoint_cache_pruned_count", value=pruned)
 
     def note_vote(self, index: int, epoch: int) -> None:
         """Keep the columnar epoch mirror in sync on per-item updates."""

@@ -20,11 +20,17 @@ evicts from the OLDEST epoch present first, least-recently-used within
 that epoch, so a burst of historical-state traffic can never wash the hot
 head's entries out of a full cache.
 
-The port's copy of the JAX package's ``serve_cache.py``.  The serving
-caches are not wired to the port's registry (:mod:`.telemetry`) yet:
-``metrics=None`` records nothing, and a ``metrics`` object the caller
-passes (the registry included) gets the JAX package's ``serve_cache_*``
-calls (``inc``, ``set_gauge``), labeled ``cache=<name>``.
+The port's copy of the JAX package's ``serve_cache.py``.  As there,
+``metrics=None`` records the ``serve_cache_*`` families, labeled
+``cache=<name>``, on the package's default registry
+(:func:`.telemetry.get_metrics`, read at each call, so a registry swapped
+in later is the one recorded to); any other ``metrics`` object with the
+registry's ``inc``/``observe``/``set_gauge``/``span`` gets them instead.
+:data:`SILENT` is the explicit opt-out: a sink that records nothing, which
+the witness plane's sinks (:class:`ServeCache`,
+:class:`.witness.coalesce.VerifyCoalescer`,
+:func:`.witness.verify.verify_batch`, :class:`.witness.service.WitnessService`)
+all accept.
 """
 
 from __future__ import annotations
@@ -33,12 +39,14 @@ import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 
+from .telemetry import _NOOP_SPAN, get_metrics
+
 __all__ = ["SILENT", "ServeCache"]
 
 
 class _Silent:
-    """A metrics sink that records nothing (the serving caches' default
-    until they are wired to :mod:`.telemetry`)."""
+    """A metrics sink that records nothing: the opt-out a caller passes
+    as ``metrics`` to keep a sink off the registry."""
 
     def inc(self, name: str, value: float = 1, **labels) -> None:
         pass
@@ -48,6 +56,9 @@ class _Silent:
 
     def set_gauge(self, name: str, value: float, **labels) -> None:
         pass
+
+    def span(self, name: str, slow: float | None = None, **labels):
+        return _NOOP_SPAN
 
 
 SILENT = _Silent()
@@ -94,7 +105,7 @@ class ServeCache:
 
     @property
     def metrics(self):
-        return self._metrics if self._metrics is not None else SILENT
+        return self._metrics if self._metrics is not None else get_metrics()
 
     def __len__(self) -> int:
         with self._lock:

@@ -26,6 +26,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 
 from ..config import ChainSpec, get_chain_spec
+from ..telemetry import get_metrics as _get_metrics
 from .bitfields import Bitlist as BitlistValue
 from .bitfields import Bitvector as BitvectorValue
 from .hash import ZERO_HASHES, HashBackend, get_hash_backend, sha256
@@ -56,6 +57,13 @@ __all__ = [
 
 BYTES_PER_CHUNK = 32
 OFFSET_SIZE = 4
+
+# per-Container-class BoundSpans for the top-level hash_tree_root entry,
+# and the default registry pinned at import (a process singleton — the
+# only registry product code records to): the no-op fast path is then one
+# module-global read + one attribute check per root call
+_ROOT_SPANS: dict[type, object] = {}
+_METRICS = _get_metrics()
 
 
 class SSZError(ValueError):
@@ -845,7 +853,22 @@ class Container(SSZType, metaclass=ContainerMeta):
         return cls.deserialize(data, spec)
 
     def hash_tree_root(self, spec=None, backend=None) -> bytes:  # type: ignore[override]
-        return type(self)._hash_tree_root_of(self, spec, backend)
+        # only the OUTERMOST root is spanned: nested fields recurse via
+        # _ContainerAdapter._hash_tree_root_of, so one state/block root is
+        # one histogram sample, not thousands of sub-tree samples.  The
+        # explicit enabled guard keeps the no-op cost of this per-item
+        # hot path to one attribute check, and the per-class BoundSpan
+        # cache keeps the enabled cost to two clock reads + one histogram
+        # insert
+        cls = type(self)
+        m = _METRICS
+        if not m._enabled:
+            return cls._hash_tree_root_of(self, spec, backend)
+        bound = _ROOT_SPANS.get(cls)
+        if bound is None:
+            bound = _ROOT_SPANS[cls] = m.bound_span("ssz_hash_tree_root", type=cls.__name__)
+        with bound.time():
+            return cls._hash_tree_root_of(self, spec, backend)
 
 
 class _ContainerAdapter(SSZType):

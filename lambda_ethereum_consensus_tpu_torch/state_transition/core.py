@@ -18,6 +18,7 @@ from __future__ import annotations
 from ..config import ChainSpec, constants, get_chain_spec
 from ..crypto import bls
 from ..ops.sha256 import resolve_device
+from ..telemetry import span
 from ..types.beacon import BeaconState, SignedBeaconBlock
 from . import accessors, misc, operations
 from .epoch import process_epoch
@@ -129,20 +130,21 @@ def state_transition(
     spec = spec or get_chain_spec()
     dev = resolve_device(device)
     block = signed_block.message
-    ws = BeaconStateMut(state)
-    _process_slots_mut(ws, block.slot, spec, dev)
-    if validate_result and not verify_block_signature(ws, signed_block, spec):
-        raise StateTransitionError("invalid block signature")
-    try:
-        process_block(ws, block, execution_engine, spec, dev)
-    except OperationError as e:
-        raise StateTransitionError(str(e)) from None
-    out = ws.freeze()
-    if validate_result:
-        expect_root = state_root(out, spec)
-        if bytes(block.state_root) != expect_root:
-            raise StateTransitionError(
-                f"state root mismatch: block {bytes(block.state_root).hex()} "
-                f"!= computed {expect_root.hex()}"
-            )
+    with span("block_transition"):
+        ws = BeaconStateMut(state)
+        _process_slots_mut(ws, block.slot, spec, dev)
+        if validate_result and not verify_block_signature(ws, signed_block, spec):
+            raise StateTransitionError("invalid block signature")
+        try:
+            process_block(ws, block, execution_engine, spec, dev)
+        except OperationError as e:
+            raise StateTransitionError(str(e)) from None
+        out = ws.freeze()
+        if validate_result:
+            expect_root = state_root(out, spec)
+            if bytes(block.state_root) != expect_root:
+                raise StateTransitionError(
+                    f"state root mismatch: block {bytes(block.state_root).hex()} "
+                    f"!= computed {expect_root.hex()}"
+                )
     return out

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import ChainSpec, constants, get_chain_spec
+from ..telemetry import span
 from ..types.beacon import Checkpoint, HistoricalSummary
 from . import accessors, misc
 from .math import integer_squareroot
@@ -30,15 +31,17 @@ def process_epoch(state: BeaconStateMut, spec: ChainSpec | None = None) -> None:
     (state_transition/resident), the O(n) sweeps run as torch ops on its
     columns on the device; any representability guard failing falls back
     to the bit-exact host path below — same results either way, pinned by
-    tests/test_torch_resident.py.  A device error raises."""
+    tests/test_torch_resident.py.  A device error raises.  Either path is
+    timed by the ``epoch_transition`` span."""
     spec = spec or get_chain_spec()
-    plane = getattr(state, "_resident_plane", None)
-    if plane is not None:
-        from .resident import process_epoch_resident
+    with span("epoch_transition"):
+        plane = getattr(state, "_resident_plane", None)
+        if plane is not None:
+            from .resident import process_epoch_resident
 
-        if process_epoch_resident(state, plane, spec):
-            return
-    _process_epoch_host(state, spec)
+            if process_epoch_resident(state, plane, spec):
+                return
+        _process_epoch_host(state, spec)
 
 
 def _process_epoch_host(state: BeaconStateMut, spec: ChainSpec) -> None:

@@ -32,9 +32,11 @@ gathers.  Representability is guarded, not assumed: the plane refuses
 product could overflow — the guards and their bounds are the ``_MAX_*``
 constants below.  A device error raises; it never routes to the host.
 
-Not carried over: the shape buckets and pow2 padding (``_pad_pow2``,
+Telemetry, as in the JAX package: ``resident_plane_validators`` after each
+sync, ``resident_plane_sync_elems`` after each epoch on the plane.  Not
+carried over: the shape buckets and pow2 padding (``_pad_pow2``,
 ``register_shape_bucket``), donation, the ``aot_jit`` cache, the
-mesh-sharded kernels, the warm-up and the telemetry gauges.
+mesh-sharded kernels and the warm-up (with its ``warmup_phase_seconds``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ import torch
 
 from ..config import ChainSpec, constants, get_chain_spec
 from ..ops.sha256 import resolve_device
+from ..telemetry import set_gauge
 from .math import integer_squareroot
 
 __all__ = [
@@ -296,6 +299,7 @@ class ResidentEpochPlane:
         self.mirror_part_prev = part_prev.copy()
         self.mirror_part_cur = part_cur.copy()
         self._stamp_deltas(state)
+        set_gauge("resident_plane_validators", n)
         return True
 
     # ------------------------------------------------------- epoch steps
@@ -570,4 +574,5 @@ def process_epoch_resident(state, plane: ResidentEpochPlane,
     # mirrors now match the post-epoch lists again: re-stamp so the NEXT
     # boundary's sync narrows its compare to the block deltas in between
     plane._stamp_deltas(state)
+    set_gauge("resident_plane_sync_elems", plane.stats["scatter_elems"])
     return True

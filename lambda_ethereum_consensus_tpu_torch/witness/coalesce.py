@@ -39,7 +39,7 @@ from __future__ import annotations
 import threading
 import time
 
-from ..serve_cache import SILENT
+from ..telemetry import get_metrics
 from .verify import verify_batch
 
 __all__ = ["DEADLINE_S", "MAX_FLUSH", "TARGET", "VerifyCoalescer"]
@@ -87,7 +87,10 @@ class VerifyCoalescer:
 
     @property
     def metrics(self):
-        return self._metrics if self._metrics is not None else SILENT
+        """The sink of the ``serve_coalesce_*`` families and of each
+        flush's :func:`~.verify.verify_batch`: the caller's ``metrics``,
+        or the port's registry."""
+        return self._metrics if self._metrics is not None else get_metrics()
 
     # ------------------------------------------------------------- surface
 

@@ -23,7 +23,8 @@ The port's copy of the JAX package's ``witness/service.py``.  Left out:
 ``register_plane`` (the memory accounting of ``ops/profile``, not
 ported) and ``SERVE_NO_CACHE`` (the proof cache is always on).
 ``backend`` is the hash backend of every planner's engine (``None``: the
-installed one).
+installed one); ``metrics`` is the proof cache's sink (``None``: the
+port's registry, as in the JAX package).
 """
 
 from __future__ import annotations

@@ -35,14 +35,12 @@ version).  Without buckets, a batch is cut into planes of at most
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..ops.sha256 import resolve_device, sha256_nodes
-from ..serve_cache import SILENT
 from ..ssz.hash import hashlib_level
+from ..telemetry import get_metrics
 from .multiproof import ProofPlan, WitnessError, WitnessProof, plan_for, verify_host
 
 __all__ = ["DEVICE_MIN", "MAX_PLANE_SLOTS", "MIN_PLANE_BATCH", "split_planes", "verify_batch"]
@@ -98,8 +96,11 @@ def verify_batch(proofs, expected_roots, device=None, metrics=None) -> list:
     verdict ``False`` without touching any plane; value corruption is
     caught by the root comparison inside the plane.  ``device=None`` runs
     the planes on the card (and raises without one); ``device="cpu"`` on
-    the plain PyTorch version.  ``metrics``, when given, gets the JAX
-    package's ``witness_verify_seconds`` and ``witness_verified_total``."""
+    the plain PyTorch version.  The ``witness_verify`` span times the
+    planes and the oracle, and ``witness_verified_total`` counts verdicts
+    by result, on ``metrics`` (default: the port's registry,
+    :func:`..telemetry.get_metrics`; :data:`..serve_cache.SILENT` records
+    nothing)."""
     n = len(proofs)
     if n == 0:
         return []
@@ -108,7 +109,7 @@ def verify_batch(proofs, expected_roots, device=None, metrics=None) -> list:
         expected_roots = [bytes(expected_roots)] * n
     if len(expected_roots) != n:
         raise WitnessError(f"{len(expected_roots)} roots for {n} proofs")
-    m = SILENT if metrics is None else metrics
+    m = get_metrics() if metrics is None else metrics
     verdicts: list[bool | None] = [None] * n
     plans: list[ProofPlan | None] = [None] * n
     for i, proof in enumerate(proofs):
@@ -121,22 +122,21 @@ def verify_batch(proofs, expected_roots, device=None, metrics=None) -> list:
             verdicts[i] = False
     live = [i for i in range(n) if verdicts[i] is None]
 
-    t0 = time.perf_counter()
-    if len(live) < DEVICE_MIN:
-        planes, oracle = [], live
-    else:
-        planes, oracle = split_planes(live, plans)
-    for i in oracle:
-        verdicts[i] = verify_host(proofs[i], expected_roots[i])
-    for plane in planes:
-        results = _verify_plane(_assemble(
-            [proofs[i] for i in plane],
-            [expected_roots[i] for i in plane],
-            [plans[i] for i in plane],
-        ), dev)
-        for i, ok in zip(plane, results):
-            verdicts[i] = bool(ok)
-    m.observe("witness_verify_seconds", time.perf_counter() - t0)
+    with m.span("witness_verify"):
+        if len(live) < DEVICE_MIN:
+            planes, oracle = [], live
+        else:
+            planes, oracle = split_planes(live, plans)
+        for i in oracle:
+            verdicts[i] = verify_host(proofs[i], expected_roots[i])
+        for plane in planes:
+            results = _verify_plane(_assemble(
+                [proofs[i] for i in plane],
+                [expected_roots[i] for i in plane],
+                [plans[i] for i in plane],
+            ), dev)
+            for i, ok in zip(plane, results):
+                verdicts[i] = bool(ok)
     ok_count = sum(1 for v in verdicts if v)
     if ok_count:
         m.inc("witness_verified_total", ok_count, result="ok")

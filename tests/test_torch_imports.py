@@ -36,7 +36,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     prefix = "lambda_ethereum_consensus_tpu_torch."
     for module in (
         "crypto.bls.api", "crypto.bls.batch", "crypto.bls.native", "da.kzg",
-        "fork_choice", "fork_choice.attestation", "fork_choice.handlers", "fork_choice.head",
+        "fork_choice", "fork_choice.attestation", "fork_choice.forensics",
+        "fork_choice.handlers", "fork_choice.head",
         "fork_choice.store", "fork_choice.tree", "ops.bls_batch", "ops.rlc",
         "ops.bls_g1", "ops.bls_g2", "ops.bls_pairing", "ops.bls_sign", "ops.sha256",
         "ssz.core", "ssz.incremental", "types.beacon",

@@ -12,6 +12,7 @@ goes through the JAX package's on-disk executable cache).  Tolerance:
 none, bytes and booleans are exact.
 """
 
+import contextlib
 import json
 
 import numpy as np
@@ -396,6 +397,11 @@ def test_verify_batch_reports_to_a_metrics_sink(states, planners):
 
         def observe(self, name, value, **labels):
             calls.append(("observe", name, labels))
+
+        @contextlib.contextmanager
+        def span(self, name, slow=None, **labels):
+            yield
+            self.observe(name + "_seconds", 0.0, **labels)
 
     proof = _prove_both(states, planners, [("balances", 0)])[1]
     V.verify_batch([proof, "junk"], proof.state_root, device="cpu", metrics=Sink())

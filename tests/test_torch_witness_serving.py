@@ -9,12 +9,14 @@ coalescer verifies with ``device=False`` (its host planes), the port's with
 size route).  Tolerance: none.
 """
 
+import contextlib
 import threading
 
 import pytest
 import torch
 
 from lambda_ethereum_consensus_tpu import serve_cache as jserve
+from lambda_ethereum_consensus_tpu import telemetry as jtelemetry
 from lambda_ethereum_consensus_tpu.config import minimal_spec as jax_minimal_spec
 from lambda_ethereum_consensus_tpu.config import use_chain_spec as jax_use_chain_spec
 from lambda_ethereum_consensus_tpu.crypto import bls as jbls
@@ -24,7 +26,7 @@ from lambda_ethereum_consensus_tpu.state_transition.genesis import (
 from lambda_ethereum_consensus_tpu.witness import coalesce as jcoalesce
 from lambda_ethereum_consensus_tpu.witness import multiproof as jmp
 from lambda_ethereum_consensus_tpu.witness.service import WitnessService as JaxWitnessService
-from lambda_ethereum_consensus_tpu_torch import convert, serve_cache
+from lambda_ethereum_consensus_tpu_torch import convert, serve_cache, telemetry
 from lambda_ethereum_consensus_tpu_torch.config import minimal_spec, use_chain_spec
 from lambda_ethereum_consensus_tpu_torch.witness import coalesce
 from lambda_ethereum_consensus_tpu_torch.witness import multiproof as mp
@@ -53,6 +55,13 @@ class Recorder:
     def observe(self, name, value, **labels):
         with self._lock:
             self.calls.append(("observe", name, None, tuple(sorted(labels.items()))))
+
+    @contextlib.contextmanager
+    def span(self, name, slow=None, **labels):
+        """A timed region, recorded as the registry records it: one
+        ``<name>_seconds`` observation at exit."""
+        yield
+        self.observe(name + "_seconds", 0.0, **labels)
 
     def named(self, prefix: str) -> list:
         return [c for c in self.calls if c[1].startswith(prefix)]
@@ -133,9 +142,16 @@ def test_serve_cache_matches_jax():
 
 
 def test_serve_cache_without_metrics_records_nothing():
+    """``metrics=None`` records on the port's registry, as the JAX
+    package's cache records on its own; ``SILENT`` stays the explicit
+    opt-out that records nothing."""
     cache = serve_cache.ServeCache("t", capacity=1)
-    assert cache.metrics is serve_cache.SILENT
+    assert cache.metrics is telemetry.get_metrics()
     assert cache.put("a", 1) == 1 and cache.get("a") == 1
+    assert jserve.ServeCache("t", capacity=1).metrics is jtelemetry.get_metrics()
+    quiet = serve_cache.ServeCache("t", capacity=1, metrics=serve_cache.SILENT)
+    assert quiet.metrics is serve_cache.SILENT
+    assert quiet.put("a", 1) == 1 and quiet.get("a") == 1
 
 
 # ------------------------------------------------------------ WitnessService
