@@ -107,6 +107,27 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    higher; then the warm drain of 1,024 with the registry, recorder and
    plane on (traces minted) and off, and phase 3's warm state root timed
    there in each polarity, printed beside the card's name and power limit;
+3g. the node's ingest path below the wire, after phase 8 on the same store:
+   an ``IngestScheduler`` with the node's lane table and three sources
+   after the node's bodies (blocks, blob sidecars, aggregates), a
+   ``DataAvailability`` gate, and a ``PendingBlocks`` scan on the card
+   writing to a ``BlockStore`` and a ``StateStore`` over a native
+   ``KvStore`` in a temporary directory; the block of the next slot on the
+   head (signed by ``produce_block``), its expectation of phase 8's six
+   commitments, the block parked by a scan, the six sidecars and three
+   adversaries (a swapped proof REJECT after the fold fails, an
+   unadvertised commitment REJECT by the pre-check, a duplicate IGNORE)
+   in one blob flush folded on the card, the sixth honest sidecar
+   ``"complete"``, a second scan applying the block with ``on_block`` and
+   storing the block and its 1,000,000-validator post-state; ``barrier``,
+   close, reopen and ``get_latest_verified_state`` returning the block's
+   root and a state whose root on the SHA-256 kernel equals the block's
+   ``state_root`` and the store's; 1,024 of phase 3c's aggregates directly
+   and through the aggregate lane (verdicts and field launches equal);
+   each step's seconds and launches, the WAL bytes, flushes by cause,
+   batch sizes and peak memory printed beside the card's name and power
+   limit, and whether ``yaml`` imports (``config.load_config_file`` then
+   checked on a devnet overlay);
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -136,7 +157,7 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    1,024 of phase 3c's drain, re-submitted to its store, through the cached
    and the host body (every verdict None, the latest messages unchanged),
    and the cached body cold at 64; ``_verify_deferred_attestations`` over
-   the first 16 to 64 aggregates of phase 3c's block through its three
+   the first 32 and 64 aggregates of phase 3c's block through its three
    routes; (d) the pairing tail: ``check_tail`` over 1 to 256 checks of two
    Miller outputs each (to 1,024 while the composed tail has won nowhere),
    every eighth check false, through the hybrid tail (native final
@@ -145,7 +166,7 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    phase 3b's block import (its set on the device chain) each once on its
    default route and once on the composed tail, verdicts equal, the composed
    tail launching exactly ``bls_pairing.FINAL_EXP_LAUNCHES`` more field
-   kernels; (e) the sign flush: ``sign_batch`` of 2,048 down to 1
+   kernels; (e) the sign flush: ``sign_batch`` of 512 down to 1
    signatures (16 signers a message; 8 and 1 signers one message) on the
    card's ladder and on the host route (the native multiply per
    signature), every signature equal.  A route that loses along its sweep
@@ -166,7 +187,8 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    the fold ``False`` and ``verify_blob_proof`` blaming exactly that blob;
 9. the field kernels at the lane counts the drain, a sign flush, a KZG
    MSM, the block import, the fork-choice drain, the mainnet block
-   import and the vector-commitment fold launch them with (launch-weighted median and 90th percentile): each
+   import, the vector-commitment fold and the ingest path of phase 3g
+   launch them with (launch-weighted median and 90th percentile): each
    against its plain version there, bit for bit, with a full and a
    broadcast (32, 1) right operand, then timed beside an empty kernel
    launched with the same grid (what a bare launch costs);
@@ -175,8 +197,9 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    ``sub_mod`` at 1, 2 and 4 threads per element in 64- and 128-thread
    blocks, each held and timed from 2,048 lanes to 2^20, which sets
    ``SUB_GROUP`` and its block size; and the SHA-256 kernel at the median
-   and 90th-percentile node counts of a root's launches and of the witness
-   plane's, held against its plain version and timed beside a bare launch
+   and 90th-percentile node counts of a root's launches, of the witness
+   plane's and of the ingest path's, held against its plain version and
+   timed beside a bare launch
    and its bound;
 10. one JSON line of per-kernel numbers, then the device line last.
 
@@ -186,7 +209,9 @@ own no time fails the run (the block imports of phases 3b and 3c need both
 the SHA-256 kernel and the three field kernels; phase 3d's planes the
 SHA-256 kernel, its vector commitment the three field kernels; phase 3e's
 proposals the SHA-256 kernel, its re-signed flushes the three field
-kernels; phase 3f's traced and malformed drains the three field kernels).  A call on
+kernels; phase 3f's traced and malformed drains the three field kernels;
+phase 3g's blob and aggregate flushes the three field kernels, its scan
+and resume the SHA-256 kernel).  A call on
 its default route through a size gate must launch every field kernel at or
 above the gate's threshold and none below it.  Needs one card, ``nvcc``,
 ``cuobjdump`` and ``g++``; exits nonzero without a card.  Longer records
@@ -195,6 +220,7 @@ land in ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import hashlib
 import json
@@ -306,6 +332,11 @@ DUTY_KEYS, DUTY_SLOTS, RESIGN_SAMPLE = 16_384, 2, 64
 # 3c's drain re-submitted with an item trace each, OBS_CONTAIN of them with
 # one malformed
 OBS_DRAIN, OBS_CONTAIN = 1024, 16
+# the node's ingest path (phase 3g): NodeConfig's lane deadlines (block, blob,
+# attestation lanes, ms) and admission budget; INGEST_AGGREGATES of phase
+# 3c's drain through the aggregate lane
+INGEST_BLOCK_MS, INGEST_BLOB_MS, INGEST_ATT_MS, INGEST_MAX_ITEMS = 25, 50, 150, 24576
+INGEST_AGGREGATES = 1024
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -2258,6 +2289,521 @@ def observability_phase(dev, record: dict, card: str, spec, store, drain: list,
     record["observability"] = out
 
 
+# ---- the node's ingest path below the wire (phase 3g)
+
+# verdict names of the gossip validator (ACCEPT re-propagates, REJECT
+# penalizes the sender, IGNORE drops quietly)
+ACCEPT, REJECT, IGNORE = "ACCEPT", "REJECT", "IGNORE"
+
+
+class _LaneSource:
+    """A duck-typed lane source of phase 3g: ``process(items)`` runs
+    ``body(items)`` and records each flush's size and verdicts.  The node's
+    three bodies below (``lambda_ethereum_consensus_tpu/node/node.py``) live
+    here until the port's ``node/node.py`` takes them."""
+
+    def __init__(self, body):
+        self.body = body
+        self.flushes: list = []
+
+    async def process(self, items):
+        self.flushes.append(dict(size=len(items), verdicts=self.body(items)))
+
+
+def _block_body(store, pending, spec):
+    """``node.py:726-764`` ``_on_block_batch``: the one-epoch window, then
+    ``pending.add_block``."""
+    def body(blocks):
+        verdicts = []
+        head_slot = store.current_slot(spec)
+        for block in blocks:
+            if abs(block.message.slot - head_slot) <= spec.SLOTS_PER_EPOCH:
+                pending.add_block(block)
+                verdicts.append(ACCEPT)
+            else:
+                verdicts.append(IGNORE)
+        return verdicts
+
+    return body
+
+
+def _blob_body(da, setup, spec, dev, linkages: list, folds: list):
+    """``node.py:890-958`` ``_blob_sidecar_drain`` over ``(subnet, sidecar)``
+    items: structural REJECTs, the linkage pre-check, one
+    ``verify_blob_batch`` per flush on the card and per-item blame only when
+    the fold fails, then ``da.on_sidecar`` mapped to verdicts (each linkage
+    appended to ``linkages`` by position, each fold's size to ``folds``)."""
+    from lambda_ethereum_consensus_tpu_torch.da import kzg as K
+    from lambda_ethereum_consensus_tpu_torch.telemetry import inc
+
+    max_blobs = int(spec.get("MAX_BLOBS_PER_BLOCK", 6))
+    subnet_count = int(spec.get("BLOB_SIDECAR_SUBNET_COUNT", 6))
+
+    def body(tagged):
+        verdicts = [None] * len(tagged)
+        items = []  # (pos, root, sidecar)
+        for pos, (subnet, sc) in enumerate(tagged):
+            index = int(sc.index)
+            if index >= max_blobs or index % subnet_count != subnet:
+                verdicts[pos] = REJECT
+                continue
+            root = sc.signed_block_header.message.hash_tree_root(spec)
+            expected = da.expected_commitment(root, index)
+            if expected is not None and expected != bytes(sc.kzg_commitment):
+                inc("da_sidecars_total", 1, result="mismatch")
+                verdicts[pos] = REJECT
+                continue
+            items.append((pos, root, sc))
+        if items:
+            blobs = [bytes(sc.blob) for _, _, sc in items]
+            comms = [bytes(sc.kzg_commitment) for _, _, sc in items]
+            proofs = [bytes(sc.kzg_proof) for _, _, sc in items]
+            folds.append(len(items))
+            if K.verify_blob_batch(blobs, comms, proofs, setup, device=dev):
+                ok = [True] * len(items)
+            else:
+                ok = [K.verify_blob_proof(b, c, p, setup) for b, c, p in zip(blobs, comms, proofs)]
+            for (pos, root, sc), valid in zip(items, ok):
+                if not valid:
+                    verdicts[pos] = REJECT
+                    continue
+                linkage = da.on_sidecar(root, int(sc.index), bytes(sc.kzg_commitment))
+                linkages.append((pos, linkage))
+                if linkage == "mismatch":
+                    verdicts[pos] = REJECT
+                elif linkage == "duplicate":
+                    verdicts[pos] = IGNORE
+                else:
+                    verdicts[pos] = ACCEPT
+        return [IGNORE if v is None else v for v in verdicts]
+
+    return body
+
+
+def _aggregate_body(store, spec, dev, results: list):
+    """``node.py:766-796`` (``_attestation_drain``): one
+    ``on_attestation_batch`` per flush, errors mapped to REJECT or IGNORE
+    (the drain's results appended to ``results``)."""
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+
+    def body(aggregates):
+        got = FC.on_attestation_batch(store, list(aggregates), is_from_block=False, spec=spec,
+                                      device=dev)
+        results.extend(got)
+        return [ACCEPT if e is None else (REJECT if getattr(e, "reject", False) else IGNORE)
+                for e in got]
+
+    return body
+
+
+def _ingest_scheduler():
+    """The node's lane table (``node.py:654-705``) with ``NodeConfig``'s
+    deadlines and budget."""
+    from lambda_ethereum_consensus_tpu_torch.fork_choice import attestation_batch_target
+    from lambda_ethereum_consensus_tpu_torch.pipeline import IngestScheduler, LaneConfig
+
+    att_deadline = INGEST_ATT_MS / 1000.0
+    att_target = min(attestation_batch_target(), 8192)
+    sched = IngestScheduler(max_items=INGEST_MAX_ITEMS)
+    sched.add_lane(LaneConfig(name="block", priority=0, weight=64, max_batch=64, max_queue=1024,
+                              deadline_s=INGEST_BLOCK_MS / 1000.0, coalesce_target=1,
+                              shed_newest=True))
+    sched.add_lane(LaneConfig(name="blob", priority=1, weight=64, max_batch=64, max_queue=1024,
+                              deadline_s=INGEST_BLOB_MS / 1000.0, coalesce_target=N_BLOBS,
+                              shed_newest=True))
+    for name, priority in (("aggregate", 2), ("subnet", 3)):
+        sched.add_lane(LaneConfig(name=name, priority=priority, weight=4096, max_batch=8192,
+                                  max_queue=16384, deadline_s=att_deadline,
+                                  coalesce_target=att_target))
+    sched.add_lane(LaneConfig(name="other", priority=4, weight=64, max_batch=64, max_queue=1024,
+                              deadline_s=0.2, coalesce_target=16))
+    return sched
+
+
+async def _flushed(sched, source: _LaneSource, flushes: int) -> None:
+    """Wait until ``source`` has taken ``flushes`` flushes and the
+    scheduler holds nothing queued or in flight."""
+    while len(source.flushes) < flushes or sched.depth or sched._inflight:
+        if sched._task is None or sched._task.done():
+            await sched.stop()  # raises what ended the drain loop
+            raise AssertionError("the ingest drain loop ended")
+        await asyncio.sleep(0.001)
+
+
+@contextlib.contextmanager
+def _path_shapes(fq_hist: Counter, sha_hist: Counter):
+    """Adds the lane count of each field launch (by kernel) to ``fq_hist``
+    and the node count of each SHA-256 launch to ``sha_hist`` while
+    active."""
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+
+    with _recording(BP, "_launch", _fq_lanes) as fq, \
+            _recording(sops, "sha256_nodes", lambda blocks: int(blocks.shape[0])) as sha:
+        yield
+    fq_hist.update(fq)
+    sha_hist.update(sha)
+
+
+def _blob_sidecars(spec, signed, blobs, commitments, proofs) -> tuple[list, list]:
+    """The block's six sidecars, each on its subnet, and the three
+    adversaries, interleaved: ``[(subnet, sidecar)]`` and what each must
+    get, ``[(verdict, linkage or None)]``."""
+    from lambda_ethereum_consensus_tpu_torch.types import (
+        BeaconBlockHeader, SignedBeaconBlockHeader,
+    )
+    from lambda_ethereum_consensus_tpu_torch.types.deneb import BlobSidecar
+
+    block = signed.message
+    header = SignedBeaconBlockHeader(
+        message=BeaconBlockHeader(slot=block.slot, proposer_index=block.proposer_index,
+                                  parent_root=block.parent_root, state_root=block.state_root,
+                                  body_root=block.body.hash_tree_root(spec)),
+        signature=signed.signature)
+    subnets = int(spec.get("BLOB_SIDECAR_SUBNET_COUNT", 6))
+
+    def sidecar(index, commitment, proof):
+        return (index % subnets, BlobSidecar(index=index, blob=blobs[index],
+                                              kzg_commitment=commitment, kzg_proof=proof,
+                                              signed_block_header=header))
+
+    honest = [sidecar(i, commitments[i], proofs[i]) for i in range(len(blobs))]
+    swapped = sidecar(0, commitments[0], proofs[1])  # REJECT once the fold fails
+    mismatch = sidecar(2, commitments[3], proofs[3])  # REJECT by the pre-check
+    items = [honest[0], honest[1], swapped, honest[2], mismatch, honest[3], honest[4],
+             honest[4], honest[5]]
+    want = [(ACCEPT, "accept"), (ACCEPT, "accept"), (REJECT, None), (ACCEPT, "accept"),
+            (REJECT, None), (ACCEPT, "accept"), (ACCEPT, "accept"), (IGNORE, "duplicate"),
+            (ACCEPT, "complete")]
+    return items, want
+
+
+def _yaml_check(spec_fn) -> str:
+    """``config.load_config_file`` on this machine: the overlay of
+    ``tests/test_torch_ssz.py``'s parity test loaded through the port where
+    ``yaml`` imports, else ``"yaml absent"``."""
+    import tempfile
+
+    from lambda_ethereum_consensus_tpu_torch.config import load_config_file
+
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        return "yaml absent"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "devnet.yaml")
+        with open(path, "w") as f:
+            f.write("PRESET_BASE: minimal\nCONFIG_NAME: devnet\nSECONDS_PER_SLOT: 3\n"
+                    "GENESIS_FORK_VERSION: 0x10000038\n")
+        got = load_config_file(path)
+    want = dict(spec_fn())
+    want.update(PRESET_BASE="minimal", CONFIG_NAME="devnet", SECONDS_PER_SLOT=3,
+                GENESIS_FORK_VERSION=bytes.fromhex("10000038"))
+    if got.name != "devnet" or dict(got) != want:
+        raise AssertionError(f"load_config_file: {got.name}, "
+                             f"{ {k: v for k, v in dict(got).items() if want.get(k) != v} }")
+    return f"yaml {yaml.__version__}: the devnet overlay loaded, == minimal + overlay"
+
+
+def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_sks: dict,
+                 keys: list[int], setup, blobs: list, commitments: list,
+                 proofs: list) -> tuple[Counter, Counter]:
+    """Phase 3g: the node's ingest path below the wire at 1,000,000
+    validators, on phase 3c's store as the phases after it left it.
+
+    An ``IngestScheduler`` with the node's lane table, three sources after
+    the node's bodies (:class:`_LaneSource`), a ``DataAvailability`` gate, a
+    ``PendingBlocks`` scan on the card whose ``on_applied`` writes the block
+    and its post-state to a ``BlockStore`` and a ``StateStore`` over a native
+    ``KvStore`` in a temporary directory (deleted after).  In order: the
+    block of the next slot on the head, signed by ``DutyScheduler.produce_block``
+    as phase 3e's proposals are; ``da.expect`` of phase 8's six
+    commitments and their versioned hashes; the block through the block
+    lane and a scan, which must park it; the six sidecars and three
+    adversaries (a swapped proof, a commitment the block did not advertise,
+    a duplicate) through the blob lane in one flush, each verdict held, the
+    sixth honest one ``"complete"``; a second scan, which applies the block
+    with ``on_block`` on the card and stores it; ``barrier()``, close,
+    reopen (the WAL replayed) and ``get_latest_verified_state``, which must
+    return the block's root and a state whose root on the SHA-256 kernel
+    equals the block's ``state_root`` and the store's; then the first
+    INGEST_AGGREGATES of phase 3c's drain, directly through
+    ``on_attestation_batch`` and then through the aggregate lane, verdicts
+    and field launches equal.  Every step's seconds and launches are
+    printed beside the card's name and power limit, with the WAL bytes, the
+    flushes by cause, the batch sizes and the peak device memory.  Returns
+    the path's field launches by (kernel, lanes) and its SHA-256 launches by
+    nodes (the lanes, the scans and the resume; not the direct drain), for
+    phase 9."""
+    import tempfile
+
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+    from lambda_ethereum_consensus_tpu_torch.config import minimal_spec
+    from lambda_ethereum_consensus_tpu_torch.da import DataAvailability
+    from lambda_ethereum_consensus_tpu_torch.da import kzg as K
+    from lambda_ethereum_consensus_tpu_torch.node import PendingBlocks
+    from lambda_ethereum_consensus_tpu_torch.node import pending_blocks as PB
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+    from lambda_ethereum_consensus_tpu_torch.store import BlockStore, KvStore, StateStore
+    from lambda_ethereum_consensus_tpu_torch.telemetry import get_metrics
+    from lambda_ethereum_consensus_tpu_torch.types import BeaconState
+    from lambda_ethereum_consensus_tpu_torch.validator import DutyScheduler, proposer_index_at_slot
+
+    t_phase = time.perf_counter()
+    _reset_peak()
+    sops.install_device_backend(dev)
+    metrics = get_metrics()
+    out: dict = {}
+    steps: dict = {}
+    fq_hist, sha_hist = Counter(), Counter()
+
+    def begin():
+        _zero_fq_launches()
+        sops.sha256_kernel_launches = 0
+        _sync()
+        return time.perf_counter()
+
+    def end(name: str, t0: float, **extra) -> dict:
+        _sync()
+        steps[name] = dict(seconds=time.perf_counter() - t0, fq_launches=_launches(),
+                           sha256_launches=sops.sha256_kernel_launches, **extra)
+        return steps[name]
+
+    # ---- the block of the next slot on the head, signed as phase 3e's are
+    head = FC.get_head(store, spec)
+    state = store.block_states[head]
+    slot = int(state.slot) + 1
+    proposer = proposer_index_at_slot(BeaconStateMut(state), slot, spec)
+    secret = (start_sks.get(proposer) or keys[proposer % REGISTRY_KEYS]).to_bytes(32, "big")
+    if store.current_slot(spec) < slot:
+        FC.on_tick(store, store.genesis_time + slot * spec.SECONDS_PER_SLOT, spec)
+    t0 = begin()
+    signed, _post = DutyScheduler({proposer: secret}, spec, device=dev).produce_block(state, slot)
+    end("produce_block", t0)
+    root = signed.message.hash_tree_root(spec)
+    items, want = _blob_sidecars(spec, signed, blobs, commitments, proofs)
+    if any(sc.signed_block_header.message.hash_tree_root(spec) != root for _, sc in items):
+        raise AssertionError("a sidecar's header does not root to the block")
+
+    da = DataAvailability(spec)
+    linkages: list = []
+    results: list = []
+    applied: list = []
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ingest_", dir=str(ROOT / "chiprun_out"))
+    wal = os.path.join(tmp, "beacon.wal")
+    kv = KvStore(wal)
+    if not kv.native:
+        raise AssertionError("the store did not open the native engine")
+    blocks_db, states_db = BlockStore(kv), StateStore(kv)
+    put_s = [0.0]
+    real_put = kv.put
+
+    def timed_put(key, value):
+        t = time.perf_counter()
+        real_put(key, value)
+        put_s[0] += time.perf_counter() - t
+
+    kv.put = timed_put
+
+    def on_applied(block_root, block):
+        applied.append(block_root)
+        t = time.perf_counter()
+        blocks_db.store_block(block, spec)
+        states_db.store_state(block_root, store.block_states[block_root], spec)
+        steps["store"] = dict(seconds=time.perf_counter() - t, put_s=put_s[0])
+
+    pending = PendingBlocks(store, spec, on_applied=on_applied, da_gate=da, device=dev)
+    sched = _ingest_scheduler()
+    block_src = _LaneSource(_block_body(store, pending, spec))
+    folds: list = []
+    blob_src = _LaneSource(_blob_body(da, setup, spec, dev, linkages, folds))
+    agg_src = _LaneSource(_aggregate_body(store, spec, dev, results))
+    on_block_s = []
+    real_on_block = PB.on_block
+
+    def timed_on_block(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return real_on_block(*args, **kwargs)
+        finally:
+            on_block_s.append(time.perf_counter() - t)
+
+    flushes0 = {(lane, cause): metrics.get("ingest_flush_count", lane=lane, cause=cause)
+                for lane in ("block", "blob", "aggregate") for cause in ("full", "deadline")}
+    da0 = {r: metrics.get("da_sidecars_total", result=r)
+           for r in ("accept", "duplicate", "mismatch")}
+    sub = drain[:INGEST_AGGREGATES]
+
+    async def run():
+        sched.start()
+        try:
+            # the expectation, then the block through its lane and a scan
+            if da.expect(root, commitments, [K.versioned_hash(c) for c in commitments]):
+                raise AssertionError("the block is available before any sidecar")
+            t0 = begin()
+            with _path_shapes(fq_hist, sha_hist):
+                sched.submit("block", signed, block_src)
+                await _flushed(sched, block_src, 1)
+            end("block lane", t0)
+            t0 = begin()
+            with _path_shapes(fq_hist, sha_hist):
+                parked = await pending.process_once()
+            end("scan 1", t0)
+            if parked or da.is_available(root) or not pending.is_pending(root):
+                raise AssertionError(f"scan 1 applied {parked}; available "
+                                     f"{da.is_available(root)}")
+            # the sidecars and the adversaries, one flush
+            t0 = begin()
+            with _path_shapes(fq_hist, sha_hist):
+                for subnet, sc in items:
+                    sched.submit("blob", (subnet, sc), blob_src)
+                await _flushed(sched, blob_src, 1)
+            end("blob lane", t0)
+            # the second scan applies the block on the card and stores it
+            t0 = begin()
+            with _constant(PB, "on_block", timed_on_block), _path_shapes(fq_hist, sha_hist):
+                done = await pending.process_once()
+            end("scan 2", t0, on_block_s=on_block_s[0] if on_block_s else None)
+            if done != 1 or applied != [root]:
+                raise AssertionError(f"scan 2 applied {done}: {[r.hex() for r in applied]}")
+            # the aggregates: directly, then through their lane
+            verdicts, direct_s, direct_launches = _counted(
+                lambda: FC.on_attestation_batch(store, sub, spec=spec, device=dev),
+                "direct drain (phase 3g)")
+            steps["direct drain"] = dict(seconds=direct_s, fq_launches=direct_launches)
+            t0 = begin()
+            with _path_shapes(fq_hist, sha_hist):
+                for agg in sub:
+                    sched.submit("aggregate", agg, agg_src)
+                await _flushed(sched, agg_src, 1)
+            end("aggregate lane", t0)
+            return verdicts
+        finally:
+            await sched.stop()
+
+    try:
+        direct = asyncio.run(run())
+        blob_verdicts = blob_src.flushes[0]["verdicts"]
+        got = [(v, dict(linkages).get(pos)) for pos, v in enumerate(blob_verdicts)]
+        if got != want:
+            raise AssertionError(f"blob verdicts {got} != {want}")
+        if not da.is_available(root) or da.pending_count():
+            raise AssertionError("the gate did not open")
+        da_delta = {r: metrics.get("da_sidecars_total", result=r) - da0[r] for r in da0}
+        if da_delta != {"accept": 6, "duplicate": 1, "mismatch": 1}:
+            raise AssertionError(f"da_sidecars_total moved by {da_delta}")
+        if store.block_states.get(root) is None or FC.get_head(store, spec) != root:
+            raise AssertionError("the applied block is not the head")
+        lane = steps["aggregate lane"]["fq_launches"]
+        if len(agg_src.flushes) != 1 or _drain_verdicts(results) != _drain_verdicts(direct) or \
+                lane != steps["direct drain"]["fq_launches"]:
+            raise AssertionError(f"aggregate lane: {len(agg_src.flushes)} flushes, launches "
+                                 f"{lane} != direct {steps['direct drain']['fq_launches']}")
+        if any(v is not None for v in direct):
+            raise AssertionError("the direct drain rejected valid aggregates")
+
+        # ---- durability: barrier, close, reopen, the verified resume
+        t0 = begin()
+        kv.barrier()
+        end("barrier", t0)
+        kv.close()
+        wal_bytes = os.path.getsize(wal)
+        t0 = begin()
+        reopened = KvStore(wal)
+        end("reopen", t0, records=reopened.recovery["records"])
+        if reopened.recovery["truncated"] or reopened.recovery["records"] != 4:
+            raise AssertionError(f"reopen recovery {reopened.recovery}")
+        blocks_again, states_again = BlockStore(reopened), StateStore(reopened)
+        decode_s = [0.0]
+        real_get_state = states_again.get_state
+
+        def timed_get_state(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return real_get_state(*args, **kwargs)
+            finally:
+                decode_s[0] += time.perf_counter() - t
+
+        states_again.get_state = timed_get_state
+        resumed_roots = []
+        real_root = BeaconState.hash_tree_root
+
+        def spied_root(self, spec=None, backend=None):
+            got_root = real_root(self, spec, backend)
+            resumed_roots.append(got_root)
+            return got_root
+
+        t0 = begin()
+        with _constant(BeaconState, "hash_tree_root", spied_root), \
+                _path_shapes(fq_hist, sha_hist):
+            resumed = states_again.get_latest_verified_state(blocks_again, spec)
+        end("resume", t0, decode_s=decode_s[0])
+        reopened.close()
+        t0 = begin()
+        store_root = store.block_states[root].hash_tree_root(spec)
+        end("store root", t0)
+        if resumed is None or resumed[0] != root or \
+                resumed_roots != [bytes(signed.message.state_root)] or \
+                store_root != resumed_roots[0]:
+            raise AssertionError(f"resume {resumed and resumed[0].hex()}: state roots "
+                                 f"{[r.hex() for r in resumed_roots]}, store {store_root.hex()}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- the launch guard, and what the phase prints
+    steps["store"]["encode_s"] = steps["store"]["seconds"] - steps["store"]["put_s"]
+    for name in ("blob lane", "aggregate lane"):
+        _require_all(steps[name]["fq_launches"], f"the {name} (phase 3g)")
+    for name in ("scan 2", "resume"):
+        if not steps[name]["sha256_launches"]:
+            raise AssertionError(f"the {name} (phase 3g) launched no SHA-256 kernel")
+    flushes = {f"{lane} {cause}": int(metrics.get("ingest_flush_count", lane=lane, cause=cause)
+                                      - flushes0[(lane, cause)]) for lane, cause in flushes0}
+    sizes = {"block": [f["size"] for f in block_src.flushes],
+             "blob": [f["size"] for f in blob_src.flushes],
+             "blob fold": folds,
+             "aggregate": [f["size"] for f in agg_src.flushes]}
+    yaml_note = _yaml_check(minimal_spec)
+    peak = _peak_mib()
+    seconds = time.perf_counter() - t_phase
+    print(f"ingest: block of slot {slot} (proposer {proposer}) produced in "
+          f"{steps['produce_block']['seconds']:.3f} s; block lane {steps['block lane']['seconds']:.3f} s "
+          f"({steps['block lane']['sha256_launches']} SHA-256); scan 1 "
+          f"{steps['scan 1']['seconds']:.4f} s, parked (available False, 0 applied) [{card}]")
+    print(f"ingest: blob lane, one flush of {len(items)} sidecars (8 past the pre-check, folded "
+          f"on the card, then blamed on the host): {steps['blob lane']['seconds']:.3f} s, "
+          f"{_total(steps['blob lane']['fq_launches'])} field launches "
+          f"{steps['blob lane']['fq_launches']}; verdicts {blob_verdicts}; the sixth honest "
+          f"sidecar 'complete', the swapped proof and the unadvertised commitment REJECT, the "
+          f"duplicate IGNORE [{card}]")
+    print(f"ingest: scan 2 {steps['scan 2']['seconds']:.3f} s: on_block "
+          f"{steps['scan 2']['on_block_s']:.3f} s on the card "
+          f"({steps['scan 2']['sha256_launches']} SHA-256, "
+          f"{_total(steps['scan 2']['fq_launches'])} field launches); store "
+          f"{steps['store']['seconds']:.3f} s (encode {steps['store']['encode_s']:.3f} s, put "
+          f"{steps['store']['put_s']:.3f} s); WAL {wal_bytes} bytes; barrier "
+          f"{steps['barrier']['seconds']:.4f} s; reopen (WAL replay) "
+          f"{steps['reopen']['seconds']:.3f} s, {steps['reopen']['records']} records [{card}]")
+    print(f"ingest: get_latest_verified_state {steps['resume']['seconds']:.3f} s (get and decode "
+          f"{steps['resume']['decode_s']:.3f} s, root {steps['resume']['seconds'] - steps['resume']['decode_s']:.3f} s, "
+          f"{steps['resume']['sha256_launches']} SHA-256): block root {root.hex()[:16]}, state "
+          f"root {resumed_roots[0].hex()[:16]} == the block's state_root == the store's "
+          f"({steps['store root']['seconds']:.3f} s) [{card}]")
+    print(f"ingest: {len(sub)} aggregates directly {steps['direct drain']['seconds']:.3f} s, "
+          f"through the aggregate lane {steps['aggregate lane']['seconds']:.3f} s (one flush of "
+          f"{sizes['aggregate']}); verdicts equal, field launches equal "
+          f"{steps['direct drain']['fq_launches']} [{card}]")
+    print(f"ingest: flushes by cause {flushes}; batch sizes {sizes}; {yaml_note}; peak device "
+          f"memory {peak:.0f} MiB; phase {seconds:.1f} s [{card}]")
+    out.update(slot=slot, proposer=proposer, steps=steps, wal_bytes=wal_bytes, flushes=flushes,
+               batch_sizes=sizes, blob_verdicts=blob_verdicts, yaml=yaml_note, peak_mib=peak,
+               seconds=seconds)
+    record["ingest"] = out
+    return fq_hist, sha_hist
+
+
 class _MetricCounts:
     """A metrics sink for the witness modules: counts each ``inc`` by name
     and labels, each ``observe`` as ``<name>_count`` and each span as
@@ -3249,9 +3795,10 @@ def mul_phase(dev, rng, record: dict, duty: dict, setup) -> None:
                          pairing_host_s=host_s, peak_mib=peak)
 
 
-def kzg_phase(dev, rng, record: dict, setup) -> bytes:
+def kzg_phase(dev, rng, record: dict, setup) -> tuple[list, list, list]:
     """Phase 8: six mainnet-width blobs committed, proved and folded on the
-    card; returns one blob for phase 9."""
+    card; returns the blobs, their commitments and their proofs (for phase
+    3g; blob 0 for phase 9)."""
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import curve as C
     from lambda_ethereum_consensus_tpu_torch.crypto.bls.fields import R
     from lambda_ethereum_consensus_tpu_torch.da import kzg as K
@@ -3313,7 +3860,7 @@ def kzg_phase(dev, rng, record: dict, setup) -> bytes:
         fold_launches=fold_launches, per_term_host_s=per_term_s, per_blob_host_s=per_blob_s,
         profiled_s=wall, device_busy_ms=busy, peak_mib=peak,
     )
-    return blobs[0]
+    return blobs, commitments, proofs
 
 
 @contextlib.contextmanager
@@ -3352,7 +3899,7 @@ def _weighted_quantile(hist: Counter, q: float) -> int:
     raise AssertionError("empty launch histogram")
 
 
-def _device_us(fn, reps: int, kernel: str, attempts: int = 3) -> tuple[float, int]:
+def _device_us(fn, reps: int, kernel: str, attempts: int = 6) -> tuple[float, int]:
     """Device time per launch of ``kernel`` (a symbol-name fragment) over
     ``reps`` calls of ``fn``, from the profiler's device trace, and the
     number of launches the trace kept (it can drop over half of them, and
@@ -3385,7 +3932,9 @@ def path_shape_timings(dev, rng, paths: dict) -> tuple[int, dict]:
     operand); then its device time per launch (profiler), the wall time per
     wrapper call back to back (CUDA events; host-bound at these sizes), and
     its byte bound there (two 128-byte operands read and one written per
-    lane).  Returns (max abs error, {path: {kernel: row}})."""
+    lane).  A path is a callable, run once under recording, or the Counter
+    of (kernel, lanes) recorded where the path ran (phase 3g's).  Returns
+    (max abs error, {path: {kernel: row}})."""
     import torch
 
     from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
@@ -3393,9 +3942,12 @@ def path_shape_timings(dev, rng, paths: dict) -> tuple[int, dict]:
     max_err = 0
     out = {}
     for path, fn in paths.items():
-        with _recording(BP, "_launch", _fq_lanes) as hist:
-            fn()
-            _sync()
+        if isinstance(fn, Counter):
+            hist = fn
+        else:
+            with _recording(BP, "_launch", _fq_lanes) as hist:
+                fn()
+                _sync()
         out[path] = {}
         for name in FQ_KERNELS:
             kernel = getattr(BP, name)
@@ -3727,14 +4279,24 @@ def main() -> int:
                      lambda parent: transition["import_primed"](parent) is not None),
     }, (f"the drain of {BLAME_DRAIN} aggregates, {blame_want.count(False)} forged "
         f"(batch_verify_each_cached)", blame_drain, blame_want), duty["scalars"])
+    ingest_store, ingest_drain = node_routes["store"], node_routes["drain"]
     del sets, node_routes
     t0 = time.perf_counter()
     setup = kzg_setup(record)
     mul_phase(dev, rng, record, duty, setup)
     print(f"scalar-multiplication phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    blob = kzg_phase(dev, rng, record, setup)
+    blobs, commitments, proofs = kzg_phase(dev, rng, record, setup)
     print(f"KZG phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3g: the node's ingest path below the wire, on phase 3c's store
+    t0 = time.perf_counter()
+    ingest_lanes, ingest_nodes = ingest_phase(dev, record, card, spec, ingest_store, ingest_drain,
+                                              transition["start_sks"], keys, setup, blobs,
+                                              commitments, proofs)
+    print(f"ingest phase {time.perf_counter() - t0:.1f} s")
+    del ingest_store, ingest_drain
+    blob = blobs[0]
 
     # ---- phase 9: the field kernels at the main paths' lane counts
     from lambda_ethereum_consensus_tpu_torch.da import kzg as K
@@ -3747,6 +4309,7 @@ def main() -> int:
         "block import": transition["import_path"],
         **node_paths,
         **witness_paths,
+        "ingest": ingest_lanes,
     }
     path_err, record["path_shapes"] = path_shape_timings(dev, rng, paths)
     mul_err, record["mul_body_sweep"] = body_sweep(
@@ -3762,6 +4325,8 @@ def main() -> int:
                                                       "the state root")
     record["sha256_witness_shapes"] = sha256_path_shapes(dev, witness_nodes, opcodes, clock_mhz,
                                                          "the witness plane")
+    record["sha256_ingest_shapes"] = sha256_path_shapes(dev, ingest_nodes, opcodes, clock_mhz,
+                                                        "the ingest path")
 
     # ---- phase 10: per-kernel numbers, then the device line
     big_n = TIMED_SIZES[-1]

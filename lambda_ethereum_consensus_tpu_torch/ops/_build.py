@@ -12,11 +12,13 @@ when a CUDA tensor first needs a kernel (or when a caller asks for
 No PyTorch header is compiled in: a source that includes them takes minutes
 to build, a plain C one seconds.
 
-The host library is ``native/bls381/bls381.cpp``, the repo's shared C++
-BLS12-381 layer, which belongs to neither Python package.  It is compiled
-in place with ``native/Makefile``'s flags into
-``_build/lib<name>-<digest>.so`` (never into ``native/build/``) at first use,
-under a file lock so that concurrent processes build it once.
+The host libraries are the repo's shared C++ layer under ``native/``, which
+belongs to neither Python package: ``native/bls381/bls381.cpp`` (BLS12-381)
+and ``native/kvstore/kvstore.cpp`` (the ordered key-value engine with its
+write-ahead log).  Each is compiled in place with ``native/Makefile``'s
+``libbls381.so`` flags into ``_build/lib<name>-<digest>.so`` (never into
+``native/build/``) at first use, under a file lock so that concurrent
+processes build it once.
 """
 
 from __future__ import annotations
@@ -39,7 +41,10 @@ _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PACKAGE_DIR / "csrc"
 BUILD_DIR = _PACKAGE_DIR / "_build"
 # host C++ sources of the repo's native layer, by library name
-HOST_SOURCES = {"bls381": _PACKAGE_DIR.parent / "native" / "bls381" / "bls381.cpp"}
+HOST_SOURCES = {
+    "bls381": _PACKAGE_DIR.parent / "native" / "bls381" / "bls381.cpp",
+    "kvstore": _PACKAGE_DIR.parent / "native" / "kvstore" / "kvstore.cpp",
+}
 # native/Makefile's flags for libbls381.so
 HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 

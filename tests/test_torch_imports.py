@@ -4,7 +4,8 @@ A fresh interpreter sets ``sys.modules["jax"]`` (and ``jaxlib``) and
 ``sys.modules["lambda_ethereum_consensus_tpu"]`` to ``None``, so any import of
 them raises, then imports every module under
 ``lambda_ethereum_consensus_tpu_torch`` — without building or loading the
-native host library, which happens at first use.
+native host libraries (BLS12-381 and the key-value engine), which happens at
+first use.
 """
 
 import subprocess
@@ -23,6 +24,8 @@ for name in names:
     importlib.import_module(name)
 from lambda_ethereum_consensus_tpu_torch.crypto.bls import native
 assert native._loaded is None, "importing loaded the native library"
+from lambda_ethereum_consensus_tpu_torch.store import kv
+assert kv._NATIVE is None, "importing loaded the native kvstore library"
 print("\\n".join(names))
 """
 
@@ -35,7 +38,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     names = set(out.stdout.split())
     prefix = "lambda_ethereum_consensus_tpu_torch."
     for module in (
-        "crypto.bls.api", "crypto.bls.batch", "crypto.bls.native", "da.kzg",
+        "crypto.bls.api", "crypto.bls.batch", "crypto.bls.native", "da.availability",
+        "da.kzg",
         "fork_choice", "fork_choice.attestation", "fork_choice.forensics",
         "fork_choice.handlers", "fork_choice.head",
         "fork_choice.store", "fork_choice.tree", "ops.bls_batch", "ops.rlc",
@@ -46,6 +50,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "state_transition.misc", "state_transition.mutable", "state_transition.mutators",
         "state_transition.operations", "state_transition.predicates",
         "state_transition.resident", "validator.duties",
+        "node", "node.pending_blocks", "pipeline", "pipeline.lanes", "pipeline.policy",
+        "pipeline.scheduler", "store", "store.block_store", "store.kv", "store.state_store",
         "telemetry", "tracing", "utils.env", "validator.harness", "validator.pool",
         "validator.scheduler",
         "serve_cache", "witness", "witness.coalesce", "witness.multiproof",
