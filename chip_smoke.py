@@ -112,9 +112,14 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    after the node's bodies (blocks, blob sidecars, aggregates), a
    ``DataAvailability`` gate, and a ``PendingBlocks`` scan on the card
    writing to a ``BlockStore`` and a ``StateStore`` over a native
-   ``KvStore`` in a temporary directory; the block of the next slot on the
-   head (signed by ``produce_block``), its expectation of phase 8's six
-   commitments, the block parked by a scan, the six sidecars and three
+   ``KvStore`` in a temporary directory; two port sidecars on loopback
+   (noise on) under phase 3c's fork digest, the receiver's
+   ``TopicSubscription``s for ``beacon_block`` and
+   ``beacon_aggregate_and_proof`` in the scheduler's block and aggregate
+   lanes, the sender serving req/resp from the store; the block of the next
+   slot on the head (signed by ``produce_block``) published over the wire,
+   its expectation of phase 8's six commitments, the block parked by a
+   scan, the six sidecars and three
    adversaries (a swapped proof REJECT after the fold fails, an
    unadvertised commitment REJECT by the pre-check, a duplicate IGNORE)
    in one blob flush folded on the card, the sixth honest sidecar
@@ -122,12 +127,18 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    storing the block and its 1,000,000-validator post-state; ``barrier``,
    close, reopen and ``get_latest_verified_state`` returning the block's
    root and a state whose root on the SHA-256 kernel equals the block's
-   ``state_root`` and the store's; 1,024 of phase 3c's aggregates directly
-   and through the aggregate lane (verdicts and field launches equal);
-   each step's seconds and launches, the WAL bytes, flushes by cause,
-   batch sizes and peak memory printed beside the card's name and power
-   limit, and whether ``yaml`` imports (``config.load_config_file`` then
-   checked on a devnet overlay);
+   ``state_root`` and the store's; the stored block back by range and by root
+   over req/resp (``BlockDownloader``), byte for byte; 1,024 of phase 3c's
+   aggregates directly, then published over the wire as
+   ``SignedAggregateAndProof``s and flushed by the aggregate lane as they
+   arrive: every verdict sent to the sidecar equal to the direct drain's,
+   none lost, each flush's field launches equal to a direct drain of its
+   members; each step's seconds and launches, the sidecars' start, publish
+   -> last verdict and the requests' round trips, the WAL bytes, flushes
+   by cause, batch sizes and peak memory printed beside the card's name and
+   power limit, with the ``protobuf`` and ``cryptography`` versions and
+   whether ``yaml`` imports (``config.load_config_file`` then checked on a
+   devnet overlay);
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -334,9 +345,12 @@ DUTY_KEYS, DUTY_SLOTS, RESIGN_SAMPLE = 16_384, 2, 64
 OBS_DRAIN, OBS_CONTAIN = 1024, 16
 # the node's ingest path (phase 3g): NodeConfig's lane deadlines (block, blob,
 # attestation lanes, ms) and admission budget; INGEST_AGGREGATES of phase
-# 3c's drain through the aggregate lane
+# 3c's drain through the aggregate lane, published over the loopback sidecar
+# pair WIRE_BURST at a time (concurrent publish commands, as a peer relays a
+# backlog)
 INGEST_BLOCK_MS, INGEST_BLOB_MS, INGEST_ATT_MS, INGEST_MAX_ITEMS = 25, 50, 150, 24576
 INGEST_AGGREGATES = 1024
+WIRE_BURST = 64
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -2297,17 +2311,40 @@ ACCEPT, REJECT, IGNORE = "ACCEPT", "REJECT", "IGNORE"
 
 
 class _LaneSource:
-    """A duck-typed lane source of phase 3g: ``process(items)`` runs
-    ``body(items)`` and records each flush's size and verdicts.  The node's
-    three bodies below (``lambda_ethereum_consensus_tpu/node/node.py``) live
-    here until the port's ``node/node.py`` takes them."""
+    """The node's handler around one of phase 3g's bodies: ``process(items)``
+    makes it a lane source fed by direct submits (the blob lane), and
+    ``handle(batch)`` a ``TopicSubscription``'s handler, which takes the
+    decoded ``GossipMessage``s of one lane flush, runs ``body`` over
+    ``extract(message)`` of each and returns the verdict codes the
+    subscription sends back to the sidecar.  Each flush's size and verdicts
+    are recorded; a wire flush also records its members, their message ids
+    and its field launches (the counters read around ``body``, which runs
+    to its end without yielding the event loop).  The node's three bodies
+    below (``lambda_ethereum_consensus_tpu/node/node.py``) live here until the
+    port's ``node/node.py`` takes them."""
 
-    def __init__(self, body):
+    def __init__(self, body, extract=None):
         self.body = body
+        self.extract = extract
         self.flushes: list = []
 
     async def process(self, items):
         self.flushes.append(dict(size=len(items), verdicts=self.body(items)))
+
+    async def handle(self, batch):
+        from lambda_ethereum_consensus_tpu_torch.network import port as P
+
+        codes = {ACCEPT: P.VERDICT_ACCEPT, REJECT: P.VERDICT_REJECT, IGNORE: P.VERDICT_IGNORE}
+        items = [self.extract(m) for m in batch]
+        _sync()
+        before = _launches()
+        verdicts = self.body(items)
+        _sync()
+        after = _launches()
+        self.flushes.append(dict(size=len(items), verdicts=verdicts, members=items,
+                                 msg_ids=[m.msg_id for m in batch],
+                                 fq_launches={k: after[k] - before[k] for k in after}))
+        return [codes[v] for v in verdicts]
 
 
 def _block_body(store, pending, spec):
@@ -2420,6 +2457,100 @@ def _ingest_scheduler():
     return sched
 
 
+async def _wire_pair(digest: bytes, ports: list) -> tuple:
+    """Two port sidecars on loopback under ``digest``, the sender dialling
+    the receiver (each ``Port`` appended to ``ports`` as it starts, for the
+    caller to close): (sender, receiver, seconds)."""
+    from lambda_ethereum_consensus_tpu_torch.network import Port
+
+    seconds = {}
+    for name in ("receiver", "sender"):
+        t0 = time.perf_counter()
+        ports.append(await Port.start(fork_digest=digest))
+        seconds[f"{name}_start_s"] = time.perf_counter() - t0
+    receiver, sender = ports
+    connected = asyncio.get_running_loop().create_future()
+    sender.on_new_peer = lambda pid, addr: connected.done() or connected.set_result(pid)
+    t0 = time.perf_counter()
+    await sender.add_peer(f"127.0.0.1:{receiver.listen_port}")
+    if await asyncio.wait_for(connected, 30) != receiver.node_id:
+        raise AssertionError("the sender connected to another node")
+    seconds["connect_s"] = time.perf_counter() - t0
+    return sender, receiver, seconds
+
+
+async def _announced(sender, receiver, topics: list, limit_s: float = 30.0) -> None:
+    """Wait until the sender's sidecar has heard the receiver subscribe to
+    every one of ``topics`` (a publish routes to announced subscribers)."""
+    peer = receiver.node_id.hex()
+    t_end = time.perf_counter() + limit_s
+    while True:
+        stats = await sender.get_gossip_stats()
+        if set(topics) <= set(stats["peers"].get(peer, {}).get("topics", ())):
+            return
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"the receiver's subscriptions never reached the sender: {stats}")
+        await asyncio.sleep(0.01)
+
+
+def _spy_verdicts(port) -> dict:
+    """Records every verdict ``port`` sends to its sidecar, once the sidecar
+    took it: ``{msg_id: [(verdict, perf_counter)]}``."""
+    got: dict = {}
+    real = port.validate_message
+
+    async def validate_message(msg_id, verdict):
+        await real(msg_id, verdict)
+        got.setdefault(msg_id, []).append((verdict, time.perf_counter()))
+
+    port.validate_message = validate_message
+    return got
+
+
+async def _verdicts_in(spy: dict, n: int, sched, what: str, limit_s: float = 300.0) -> None:
+    """Wait until ``spy`` holds ``n`` message ids and the scheduler holds
+    nothing queued or in flight; raise what ended the drain loop, if it
+    ended."""
+    t_end = time.perf_counter() + limit_s
+    while len(spy) < n or sched.depth or sched._inflight:
+        if sched._task is None or sched._task.done():
+            await sched.stop()  # raises what ended the drain loop
+            raise AssertionError("the ingest drain loop ended")
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"{what}: {len(spy)} of {n} verdicts after {limit_s} s")
+        await asyncio.sleep(0.001)
+
+
+class _StoreChain:
+    """The ``ChainView`` the sender's ``ReqRespServer`` answers from: phase
+    3g's fork-choice store and its ``BlockStore``.  It lives here until the
+    port's ``node/chain.py`` takes its place."""
+
+    def __init__(self, store, blocks_db, spec, digest: bytes):
+        self.store, self.blocks_db, self.spec, self.digest = store, blocks_db, spec, digest
+
+    def status(self):
+        from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+        from lambda_ethereum_consensus_tpu_torch.types.p2p import StatusMessage
+
+        head = FC.get_head(self.store, self.spec)
+        fin = self.store.finalized_checkpoint
+        return StatusMessage(fork_digest=self.digest, finalized_root=fin.root,
+                             finalized_epoch=fin.epoch, head_root=head,
+                             head_slot=self.store.blocks[head].slot)
+
+    def metadata(self):
+        from lambda_ethereum_consensus_tpu_torch.types.p2p import Metadata
+
+        return Metadata(seq_number=0)
+
+    def block_by_slot(self, slot):
+        return self.blocks_db.get_block_by_slot(slot, self.spec)
+
+    def block_by_root(self, root):
+        return self.blocks_db.get_block(root, self.spec)
+
+
 async def _flushed(sched, source: _LaneSource, flushes: int) -> None:
     """Wait until ``source`` has taken ``flushes`` flushes and the
     scheduler holds nothing queued or in flight."""
@@ -2478,6 +2609,14 @@ def _blob_sidecars(spec, signed, blobs, commitments, proofs) -> tuple[list, list
     return items, want
 
 
+def _wire_versions() -> str:
+    """The versions of the sidecar's two imports on this machine."""
+    import cryptography
+    import google.protobuf
+
+    return f"protobuf {google.protobuf.__version__}, cryptography {cryptography.__version__}"
+
+
 def _yaml_check(spec_fn) -> str:
     """``config.load_config_file`` on this machine: the overlay of
     ``tests/test_torch_ssz.py``'s parity test loaded through the port where
@@ -2511,27 +2650,37 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     """Phase 3g: the node's ingest path below the wire at 1,000,000
     validators, on phase 3c's store as the phases after it left it.
 
-    An ``IngestScheduler`` with the node's lane table, three sources after
+    An ``IngestScheduler`` with the node's lane table, three handlers after
     the node's bodies (:class:`_LaneSource`), a ``DataAvailability`` gate, a
     ``PendingBlocks`` scan on the card whose ``on_applied`` writes the block
     and its post-state to a ``BlockStore`` and a ``StateStore`` over a native
-    ``KvStore`` in a temporary directory (deleted after).  In order: the
-    block of the next slot on the head, signed by ``DutyScheduler.produce_block``
-    as phase 3e's proposals are; ``da.expect`` of phase 8's six
-    commitments and their versioned hashes; the block through the block
-    lane and a scan, which must park it; the six sidecars and three
+    ``KvStore`` in a temporary directory (deleted after), and the wire: two
+    port sidecars on loopback under the head state's fork digest, the
+    receiver's ``TopicSubscription``s for ``beacon_block`` and
+    ``beacon_aggregate_and_proof`` feeding the block and aggregate lanes, the
+    sender's ``ReqRespServer`` answering from the store (:class:`_StoreChain`).
+    In order: the block of the next slot on the head, signed by
+    ``DutyScheduler.produce_block`` as phase 3e's proposals are; ``da.expect``
+    of phase 8's six commitments and their versioned hashes; the block
+    published over the wire, through the block lane, and a scan, which must
+    park it; the six sidecars and three
     adversaries (a swapped proof, a commitment the block did not advertise,
-    a duplicate) through the blob lane in one flush, each verdict held, the
-    sixth honest one ``"complete"``; a second scan, which applies the block
-    with ``on_block`` on the card and stores it; ``barrier()``, close,
-    reopen (the WAL replayed) and ``get_latest_verified_state``, which must
-    return the block's root and a state whose root on the SHA-256 kernel
-    equals the block's ``state_root`` and the store's; then the first
-    INGEST_AGGREGATES of phase 3c's drain, directly through
-    ``on_attestation_batch`` and then through the aggregate lane, verdicts
-    and field launches equal.  Every step's seconds and launches are
-    printed beside the card's name and power limit, with the WAL bytes, the
-    flushes by cause, the batch sizes and the peak device memory.  Returns
+    a duplicate) submitted straight into the blob lane in one flush (over
+    the wire the sidecar's seen cache would drop the duplicate before the
+    gate), each verdict held, the sixth honest one ``"complete"``; a second
+    scan, which applies the block with ``on_block`` on the card and stores
+    it; the block back from the sender by range and by root, equal to the
+    stored bytes; the first INGEST_AGGREGATES of phase 3c's drain, directly
+    through ``on_attestation_batch``, then published over the wire and
+    flushed by the aggregate lane as they arrive (per message: one verdict,
+    the direct drain's; per flush: the field launches of a direct drain of
+    its members); then ``barrier()``, close, reopen (the WAL replayed) and
+    ``get_latest_verified_state``, which must return the block's root and a
+    state whose root on the SHA-256 kernel equals the block's
+    ``state_root`` and the store's.  Every step's seconds and launches are
+    printed beside the card's name and power limit, with the wire's times,
+    the WAL bytes, the flushes by cause, the batch sizes and the peak device
+    memory.  Returns
     the path's field launches by (kernel, lanes) and its SHA-256 launches by
     nodes (the lanes, the scans and the resume; not the direct drain), for
     phase 9."""
@@ -2540,14 +2689,29 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
     from lambda_ethereum_consensus_tpu_torch.config import minimal_spec
     from lambda_ethereum_consensus_tpu_torch.da import DataAvailability
+    from lambda_ethereum_consensus_tpu_torch.compression import compress as snappy_compress
     from lambda_ethereum_consensus_tpu_torch.da import kzg as K
+    from lambda_ethereum_consensus_tpu_torch.network.gossip import (
+        TopicSubscription, publish_ssz, topic_name,
+    )
+    from lambda_ethereum_consensus_tpu_torch.network.peerbook import Peerbook
+    from lambda_ethereum_consensus_tpu_torch.network.port import (
+        VERDICT_ACCEPT, VERDICT_IGNORE, VERDICT_REJECT,
+    )
+    from lambda_ethereum_consensus_tpu_torch.network.reqresp import BlockDownloader, ReqRespServer
+    from lambda_ethereum_consensus_tpu_torch.network.sidecar import _msg_id
     from lambda_ethereum_consensus_tpu_torch.node import PendingBlocks
     from lambda_ethereum_consensus_tpu_torch.node import pending_blocks as PB
     from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.state_transition import misc
     from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
     from lambda_ethereum_consensus_tpu_torch.store import BlockStore, KvStore, StateStore
+    from lambda_ethereum_consensus_tpu_torch.store import block_store
     from lambda_ethereum_consensus_tpu_torch.telemetry import get_metrics
-    from lambda_ethereum_consensus_tpu_torch.types import BeaconState
+    from lambda_ethereum_consensus_tpu_torch.types import BeaconState, SignedBeaconBlock
+    from lambda_ethereum_consensus_tpu_torch.types.validator import (
+        AggregateAndProof, SignedAggregateAndProof,
+    )
     from lambda_ethereum_consensus_tpu_torch.validator import DutyScheduler, proposer_index_at_slot
 
     t_phase = time.perf_counter()
@@ -2635,18 +2799,46 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     da0 = {r: metrics.get("da_sidecars_total", result=r)
            for r in ("accept", "duplicate", "mismatch")}
     sub = drain[:INGEST_AGGREGATES]
+    digest = misc.compute_fork_digest(bytes(state.fork.current_version),
+                                      bytes(state.genesis_validators_root))
+    block_topic = topic_name(digest, "beacon_block")
+    agg_topic = topic_name(digest, "beacon_aggregate_and_proof")
+    block_src.extract = lambda m: m.value
+    agg_src.extract = lambda m: m.value.message.aggregate
+    wire: dict = {}
 
     async def run():
         sched.start()
+        ports: list = []
         try:
-            # the expectation, then the block through its lane and a scan
+            # ---- the wire: two port sidecars on loopback, the receiver's
+            # subscriptions in the scheduler's block and aggregate lanes
+            t0 = time.perf_counter()
+            sender, receiver, wire["pair"] = await _wire_pair(digest, ports)
+            spy = _spy_verdicts(receiver)
+            subs = [TopicSubscription(receiver, block_topic, block_src.handle,
+                                      ssz_type=SignedBeaconBlock, spec=spec, scheduler=sched,
+                                      lane="block"),
+                    TopicSubscription(receiver, agg_topic, agg_src.handle,
+                                      ssz_type=SignedAggregateAndProof, spec=spec,
+                                      scheduler=sched, lane="aggregate")]
+            for s in subs:
+                await s.start()
+            await ReqRespServer(sender, _StoreChain(store, blocks_db, spec, digest), spec).register()
+            await _announced(sender, receiver, [block_topic, agg_topic])
+            wire["setup_s"] = time.perf_counter() - t0
+            # the expectation, then the block over the wire and a scan
             if da.expect(root, commitments, [K.versioned_hash(c) for c in commitments]):
                 raise AssertionError("the block is available before any sidecar")
             t0 = begin()
             with _path_shapes(fq_hist, sha_hist):
-                sched.submit("block", signed, block_src)
-                await _flushed(sched, block_src, 1)
-            end("block lane", t0)
+                await publish_ssz(sender, block_topic, signed, spec)
+                await _verdicts_in(spy, 1, sched, "the block")
+            end("block wire", t0)
+            block_id = _msg_id(block_topic, snappy_compress(signed.encode(spec)))
+            if [v for v, _ in spy.get(block_id, ())] != [VERDICT_ACCEPT] or \
+                    [f["verdicts"] for f in block_src.flushes] != [[ACCEPT]]:
+                raise AssertionError(f"the block's verdicts {spy}, flushes {block_src.flushes}")
             t0 = begin()
             with _path_shapes(fq_hist, sha_hist):
                 parked = await pending.process_once()
@@ -2654,7 +2846,9 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
             if parked or da.is_available(root) or not pending.is_pending(root):
                 raise AssertionError(f"scan 1 applied {parked}; available "
                                      f"{da.is_available(root)}")
-            # the sidecars and the adversaries, one flush
+            # the sidecars and the adversaries, one flush, submitted directly:
+            # the sidecar's seen cache would drop the duplicate before the DA
+            # gate and change the flush's verdicts
             t0 = begin()
             with _path_shapes(fq_hist, sha_hist):
                 for subnet, sc in items:
@@ -2668,19 +2862,54 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
             end("scan 2", t0, on_block_s=on_block_s[0] if on_block_s else None)
             if done != 1 or applied != [root]:
                 raise AssertionError(f"scan 2 applied {done}: {[r.hex() for r in applied]}")
-            # the aggregates: directly, then through their lane
+            # the stored block back over req/resp, by range and by root
+            peers = Peerbook()
+            peers.add_peer(sender.node_id)
+            downloader = BlockDownloader(receiver, peers, spec)
+            stored = kv.get(block_store._BLOCK + root)
+            for name, request in (("range", lambda: downloader.request_blocks_by_range(slot, 1)),
+                                  ("root", lambda: downloader.request_blocks_by_root([root]))):
+                t0 = time.perf_counter()
+                answer = await request()
+                wire[f"by_{name}_s"] = time.perf_counter() - t0
+                if [b.encode(spec) for b in answer] != [stored] or stored != signed.encode(spec):
+                    raise AssertionError(f"blocks by {name}: {len(answer)} blocks, not the "
+                                         f"stored block")
+            wire["block_bytes"] = len(stored)
+            # the aggregates: directly, then over the wire through their lane
             verdicts, direct_s, direct_launches = _counted(
                 lambda: FC.on_attestation_batch(store, sub, spec=spec, device=dev),
                 "direct drain (phase 3g)")
             steps["direct drain"] = dict(seconds=direct_s, fq_launches=direct_launches)
+            t0 = time.perf_counter()
+            payloads = [snappy_compress(SignedAggregateAndProof(message=AggregateAndProof(
+                aggregator_index=i, aggregate=agg)).encode(spec)) for i, agg in enumerate(sub)]
+            wire["ids"] = [_msg_id(agg_topic, p) for p in payloads]
+            wire["encode_s"] = time.perf_counter() - t0
+            wire["payload_bytes"] = sum(map(len, payloads))
+            spy.clear()
             t0 = begin()
             with _path_shapes(fq_hist, sha_hist):
-                for agg in sub:
-                    sched.submit("aggregate", agg, agg_src)
-                await _flushed(sched, agg_src, 1)
-            end("aggregate lane", t0)
+                t_pub = time.perf_counter()
+                for i in range(0, len(payloads), WIRE_BURST):
+                    await asyncio.gather(*(sender.publish(agg_topic, p)
+                                           for p in payloads[i:i + WIRE_BURST]))
+                wire["publish_s"] = time.perf_counter() - t_pub
+                await _verdicts_in(spy, len(payloads), sched, "the aggregates")
+                wire["last_verdict_s"] = max(ts for got in spy.values() for _, ts in got) - t_pub
+            end("aggregate wire", t0)
+            wire["verdicts"] = {k: [v for v, _ in got] for k, got in spy.items()}
+            wire["gossip_stats"] = await sender.get_gossip_stats()
+            t0 = time.perf_counter()
+            for s in subs:
+                await s.stop()
+            wire["unsubscribe_s"] = time.perf_counter() - t0
             return verdicts
         finally:
+            t0 = time.perf_counter()
+            for port in ports:
+                await port.close()
+            wire["close_s"] = time.perf_counter() - t0
             await sched.stop()
 
     try:
@@ -2696,13 +2925,36 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
             raise AssertionError(f"da_sidecars_total moved by {da_delta}")
         if store.block_states.get(root) is None or FC.get_head(store, spec) != root:
             raise AssertionError("the applied block is not the head")
-        lane = steps["aggregate lane"]["fq_launches"]
-        if len(agg_src.flushes) != 1 or _drain_verdicts(results) != _drain_verdicts(direct) or \
-                lane != steps["direct drain"]["fq_launches"]:
-            raise AssertionError(f"aggregate lane: {len(agg_src.flushes)} flushes, launches "
-                                 f"{lane} != direct {steps['direct drain']['fq_launches']}")
         if any(v is not None for v in direct):
             raise AssertionError("the direct drain rejected valid aggregates")
+        # per item: one verdict per message, the direct drain's
+        t0 = time.perf_counter()
+        index = {msg_id: i for i, msg_id in enumerate(wire["ids"])}
+        codes = [VERDICT_ACCEPT if e is None else
+                 (VERDICT_REJECT if getattr(e, "reject", False) else VERDICT_IGNORE)
+                 for e in direct]
+        arrived = [msg_id for f in agg_src.flushes for msg_id in f["msg_ids"]]
+        if len(index) != len(sub) or sorted(arrived, key=lambda m: index.get(m, -1)) != wire["ids"] or \
+                wire["verdicts"] != {m: [codes[index[m]]] for m in wire["ids"]} or \
+                _drain_verdicts(results) != _drain_verdicts([direct[index[m]] for m in arrived]):
+            raise AssertionError(f"aggregate wire: {len(arrived)} of {len(sub)} arrived, "
+                                 f"{len(wire['verdicts'])} verdicts, not the direct drain's")
+        # per flush: the launches of a direct drain of the same members
+        for f in agg_src.flushes:
+            _zero_fq_launches()
+            _sync()
+            again = FC.on_attestation_batch(store, f["members"], spec=spec, device=dev)
+            _sync()
+            f["direct_launches"] = _launches()
+            if f["fq_launches"] != f["direct_launches"] or \
+                    _drain_verdicts(again) != [None] * f["size"]:
+                raise AssertionError(f"a flush of {f['size']}: launches {f['fq_launches']} != "
+                                     f"a direct drain's {f['direct_launches']}")
+        wire["flush_check_s"] = time.perf_counter() - t0
+        # the step's own seconds: what the wire added to the phase
+        wire["seconds"] = sum(wire[k] for k in (
+            "setup_s", "by_range_s", "by_root_s", "encode_s", "flush_check_s", "unsubscribe_s",
+            "close_s")) + steps["block wire"]["seconds"] + steps["aggregate wire"]["seconds"]
 
         # ---- durability: barrier, close, reopen, the verified resume
         t0 = begin()
@@ -2754,7 +3006,7 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
 
     # ---- the launch guard, and what the phase prints
     steps["store"]["encode_s"] = steps["store"]["seconds"] - steps["store"]["put_s"]
-    for name in ("blob lane", "aggregate lane"):
+    for name in ("blob lane", "aggregate wire"):
         _require_all(steps[name]["fq_launches"], f"the {name} (phase 3g)")
     for name in ("scan 2", "resume"):
         if not steps[name]["sha256_launches"]:
@@ -2766,14 +3018,23 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
              "blob fold": folds,
              "aggregate": [f["size"] for f in agg_src.flushes]}
     yaml_note = _yaml_check(minimal_spec)
+    versions = _wire_versions()
     peak = _peak_mib()
     seconds = time.perf_counter() - t_phase
+    pair = wire["pair"]
+    print(f"wire: two port sidecars on loopback, noise on ({versions}): receiver started in "
+          f"{pair['receiver_start_s']:.3f} s, sender in {pair['sender_start_s']:.3f} s, connected "
+          f"in {pair['connect_s']:.3f} s; subscribed, served and announced "
+          f"{wire['setup_s']:.3f} s in all [{card}]")
     print(f"ingest: block of slot {slot} (proposer {proposer}) produced in "
-          f"{steps['produce_block']['seconds']:.3f} s; block lane {steps['block lane']['seconds']:.3f} s "
-          f"({steps['block lane']['sha256_launches']} SHA-256); scan 1 "
+          f"{steps['produce_block']['seconds']:.3f} s; published over the wire, publish -> "
+          f"verdict {steps['block wire']['seconds']:.3f} s "
+          f"({steps['block wire']['sha256_launches']} SHA-256); scan 1 "
           f"{steps['scan 1']['seconds']:.4f} s, parked (available False, 0 applied) [{card}]")
-    print(f"ingest: blob lane, one flush of {len(items)} sidecars (8 past the pre-check, folded "
-          f"on the card, then blamed on the host): {steps['blob lane']['seconds']:.3f} s, "
+    print(f"ingest: blob lane, one flush of {len(items)} sidecars submitted directly (over the "
+          f"wire the sidecar's seen cache would drop the duplicate before the DA gate; 8 past "
+          f"the pre-check, folded on the card, then blamed on the host): "
+          f"{steps['blob lane']['seconds']:.3f} s, "
           f"{_total(steps['blob lane']['fq_launches'])} field launches "
           f"{steps['blob lane']['fq_launches']}; verdicts {blob_verdicts}; the sixth honest "
           f"sidecar 'complete', the swapped proof and the unadvertised commitment REJECT, the "
@@ -2791,15 +3052,33 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
           f"{steps['resume']['sha256_launches']} SHA-256): block root {root.hex()[:16]}, state "
           f"root {resumed_roots[0].hex()[:16]} == the block's state_root == the store's "
           f"({steps['store root']['seconds']:.3f} s) [{card}]")
-    print(f"ingest: {len(sub)} aggregates directly {steps['direct drain']['seconds']:.3f} s, "
-          f"through the aggregate lane {steps['aggregate lane']['seconds']:.3f} s (one flush of "
-          f"{sizes['aggregate']}); verdicts equal, field launches equal "
-          f"{steps['direct drain']['fq_launches']} [{card}]")
+    print(f"wire: the stored block ({wire['block_bytes']} bytes) back from the sender's "
+          f"ReqRespServer: blocks by range round trip {wire['by_range_s']:.4f} s, by root "
+          f"{wire['by_root_s']:.4f} s, both == the stored block [{card}]")
+    per_flush = [_total(f["fq_launches"]) for f in agg_src.flushes]
+    wire_total = _total(steps["aggregate wire"]["fq_launches"])
+    direct_total = _total(steps["direct drain"]["fq_launches"])
+    print(f"wire: {len(sub)} aggregates directly {steps['direct drain']['seconds']:.3f} s "
+          f"({direct_total} field launches); over the wire in bursts of {WIRE_BURST} "
+          f"({wire['payload_bytes']} snappy bytes, encoded in {wire['encode_s']:.3f} s): publish "
+          f"{wire['publish_s']:.3f} s, publish -> last verdict {wire['last_verdict_s']:.3f} s, "
+          f"{len(agg_src.flushes)} flushes of {sizes['aggregate']}; field launches per flush "
+          f"{per_flush} (each == a direct drain of its members, {wire['flush_check_s']:.3f} s), "
+          f"{wire_total} in all ({wire_total / len(sub):.1f} per aggregate against "
+          f"{direct_total / len(sub):.1f} in one drain); every verdict == the direct drain's, "
+          f"none lost or shed [{card}]")
+    print(f"wire: step {wire['seconds']:.3f} s (sidecars, subscriptions, the block, the "
+          f"requests, the aggregates' encode, wire and per-flush check, unsubscribe "
+          f"{wire['unsubscribe_s']:.3f} s, close {wire['close_s']:.3f} s) [{card}]")
     print(f"ingest: flushes by cause {flushes}; batch sizes {sizes}; {yaml_note}; peak device "
           f"memory {peak:.0f} MiB; phase {seconds:.1f} s [{card}]")
+    wire.update(versions=versions, flush_launches=[f["fq_launches"] for f in agg_src.flushes],
+                stats=wire.pop("gossip_stats"))
+    for key in ("ids", "verdicts"):
+        wire.pop(key)
     out.update(slot=slot, proposer=proposer, steps=steps, wal_bytes=wal_bytes, flushes=flushes,
                batch_sizes=sizes, blob_verdicts=blob_verdicts, yaml=yaml_note, peak_mib=peak,
-               seconds=seconds)
+               wire=wire, seconds=seconds)
     record["ingest"] = out
     return fq_hist, sha_hist
 

@@ -22,9 +22,10 @@ batch as a weight event on the store's forensics plane, which also hears
 every checkpoint advance, accepted block and attester slashing.  One bad
 item's unexpected exception becomes that item's ignore verdict
 (:class:`_DrainContainment`), counted in ``gossip_batch_error_count``,
-and the rest of the drain goes on — except a ``RuntimeError`` (a kernel,
-native or CUDA fault), which raises: the port surfaces device faults where
-the JAX package contains them too.  Left out of the JAX package's module:
+and the rest of the drain goes on — except a device fault (a
+``RuntimeError``: a kernel, native or CUDA fault; ``faults.is_device_fault``),
+which raises: the port surfaces device faults where the JAX package
+contains them too.  Left out of the JAX package's module:
 the sharded drain and the device-fault fallback (nothing is retried on the
 host).
 """
@@ -37,6 +38,7 @@ import time as _time
 import numpy as np
 
 from ..config import ChainSpec, constants, get_chain_spec
+from ..faults import is_device_fault
 from ..ops.sha256 import resolve_device
 from ..state_transition import accessors, misc
 from ..state_transition.core import process_slots, state_transition
@@ -446,9 +448,9 @@ def _attestation_batch_host(store, attestations, is_from_block, spec, results, d
             # unknown block, timing, committee mismatch: could be a race
             # or missing context — ignore, don't penalize
             results[i] = ForkChoiceError(str(e))
-        except RuntimeError:
-            raise  # a device or native fault is surfaced, never contained
         except Exception as e:
+            if is_device_fault(e):
+                raise  # a device or native fault is surfaced, never contained
             # unexpected (e.g. an IndexError from a malformed bitfield)
             results[i] = contain.verdict(e)
     if not prepared:
@@ -501,9 +503,9 @@ def _attestation_batch_cached(store, attestations, is_from_block, spec, results,
             # unknown block, timing, committee mismatch, a bad bitfield
             # buffer: could be a race or missing context — ignore
             results[i] = ForkChoiceError(str(e))
-        except RuntimeError:
-            raise  # a device or native fault is surfaced, never contained
         except Exception as e:
+            if is_device_fault(e):
+                raise  # a device or native fault is surfaced, never contained
             # unexpected (e.g. a TypeError from a malformed bitfield)
             results[i] = contain.verdict(e)
 
@@ -545,9 +547,9 @@ def _attestation_batch_cached(store, attestations, is_from_block, spec, results,
             # inconsistent cache shapes): fail the item, not the batch
             get_metrics().inc("gossip_batch_error_count", stage="item")
             results[i] = ForkChoiceError(str(e))
-        except RuntimeError:
-            raise
         except Exception as e:  # unexpected: contain to the item
+            if is_device_fault(e):
+                raise
             results[i] = contain.verdict(e)
 
     accepted = []  # (batch index, ctx, attestation, attesting array)

@@ -15,7 +15,9 @@ never logged away by the loop: it ends that loop and cancels its sibling at
 once, counts once in ``pending_blocks_loop_fault_total``, puts a
 ``pending_loop_fault`` event on the flight recorder's timeline, and is raised
 by the next :meth:`PendingBlocks.add_block` and by :meth:`PendingBlocks.stop`.
-Any other exception is logged and the loop goes on, as in the JAX package.
+Any other exception, a wire error from the downloader (``ReqRespError``,
+``PortError``; ``faults.is_device_fault``) included, is logged and the loop
+goes on, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import asyncio
 import logging
 
 from ..config import ChainSpec
+from ..faults import is_device_fault
 from ..fork_choice import Store, on_block
 from ..state_transition.errors import SpecError
 from ..telemetry import get_metrics
@@ -181,10 +184,10 @@ class PendingBlocks:
                 await fn()
             except asyncio.CancelledError:
                 raise
-            except RuntimeError as exc:
-                # a device, native or store fault is never logged away
-                self._fail(exc)
-                raise
-            except Exception:
+            except Exception as exc:
+                if is_device_fault(exc):
+                    # a device, native or store fault is never logged away
+                    self._fail(exc)
+                    raise
                 log.exception("pending-blocks loop error")
             await asyncio.sleep(interval)

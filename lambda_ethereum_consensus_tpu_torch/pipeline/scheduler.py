@@ -31,14 +31,15 @@ deliberate differences:
 
 - a flush is never snapped onto shape buckets: the port keeps no AOT
   registry, so it flushes as the JAX package does when nothing was warmed;
-- a ``RuntimeError`` from a source's ``process`` (a kernel, native or CUDA
-  fault, ``torch.OutOfMemoryError``) is not counted into
-  ``ingest_flush_error_count``: it ends the drain loop, which is not
-  restarted.  The fault counts once in ``ingest_loop_crash_count``, puts a
-  ``drain_fault`` event on the flight recorder's timeline, and is raised
-  by the next :meth:`IngestScheduler.submit` and by
-  :meth:`IngestScheduler.stop`.  Every other exception is counted and
-  contained as in the JAX package.
+- a device fault from a source's ``process`` (a ``RuntimeError``: a kernel,
+  native or CUDA fault, ``torch.OutOfMemoryError``; ``faults.is_device_fault``)
+  is not counted into ``ingest_flush_error_count``: it ends the drain loop,
+  which is not restarted.  The fault counts once in
+  ``ingest_loop_crash_count``, puts a ``drain_fault`` event on the flight
+  recorder's timeline, and is raised by the next
+  :meth:`IngestScheduler.submit` and by :meth:`IngestScheduler.stop`.  Every
+  other exception, a wire error (``PortError``, ``ReqRespError``) included,
+  is counted and contained as in the JAX package.
 
 The degraded latch's window is the module constant
 :data:`DEGRADED_WINDOW_S`, not a ``degraded_window_s=`` argument.
@@ -50,6 +51,7 @@ import asyncio
 import logging
 import time
 
+from ..faults import is_device_fault
 from ..telemetry import get_metrics
 from ..tracing import get_recorder
 from .lanes import Lane, LaneConfig
@@ -155,7 +157,7 @@ class IngestScheduler:
         exc = task.exception()
         if exc is None:
             return  # _run never returns normally
-        if isinstance(exc, RuntimeError):
+        if is_device_fault(exc):
             # a device fault is surfaced, never retried: the loop stays
             # down, and submit() and stop() raise it (_run counted it)
             log.error("ingest drain loop ended by a device fault", exc_info=exc)
@@ -282,6 +284,8 @@ class IngestScheduler:
         try:
             await self._drain()
         except RuntimeError as exc:
+            if not is_device_fault(exc):
+                raise  # the supervisor restarts the loop
             # stored before any other coroutine runs, so the very next
             # submit() raises it; counted and put on the timeline once
             self._fault = exc
@@ -430,9 +434,9 @@ class IngestScheduler:
                     self._flush_error_logged = False  # outage over: re-arm
                 except asyncio.CancelledError:
                     raise
-                except RuntimeError:
-                    raise  # a device fault ends the loop (no restart)
-                except Exception:
+                except Exception as exc:
+                    if is_device_fault(exc):
+                        raise  # a device fault ends the loop (no restart)
                     # a failed flush (port hiccup, handler bug) must not
                     # kill the scheduler — but it must be visible:
                     # counter per flush, one traceback per outage

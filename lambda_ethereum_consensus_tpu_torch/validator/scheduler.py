@@ -30,7 +30,8 @@ ticket each duty, and occasionally a block.  The scheduler:
 The port's copy of the JAX package's ``validator/scheduler.py``.  The
 scheduler's ``device`` (default: the card) carries its default signer, its
 epoch advances, its committee contexts and its proposals.  A device or
-native fault (``RuntimeError``) propagates out of every entry point,
+native fault (``RuntimeError``, ``faults.is_device_fault``) propagates out
+of every entry point,
 ``on_tick`` included; any other failure of a phase is logged and skipped
 as in the JAX package.  Two host costs of a 10^6-validator registry are
 cut without changing an answer: the proposer schedule reads one mutable
@@ -48,6 +49,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..config import ChainSpec, constants, get_chain_spec, use_chain_spec
+from ..faults import is_device_fault
 from ..fork_choice.attestation import get_state_attestation_context
 from ..ops.bls_sign import sign_batch
 from ..state_transition import accessors, misc, process_slots
@@ -368,9 +370,9 @@ class DutyScheduler:
                 pre, slot, self.keymap, attestations=atts, spec=spec,
                 device=self.device,
             )
-        except RuntimeError:
-            raise  # a device or native fault is no bad candidate
-        except Exception:
+        except Exception as exc:
+            if is_device_fault(exc):
+                raise  # a device or native fault is no bad candidate
             if not atts:
                 raise
             log.exception(
@@ -478,9 +480,9 @@ class DutyScheduler:
             # wrong preset.  Pin the scheduler's spec for the whole pass.
             with use_chain_spec(self.spec):
                 return self._fire_phases(produced, state, head, slot, interval, now)
-        except RuntimeError:
-            raise  # a device or native fault propagates, never skipped
-        except Exception:
+        except Exception as exc:
+            if is_device_fault(exc):
+                raise  # a device or native fault propagates, never skipped
             # a failed phase must not take the tick loop down with it;
             # the skipped-slot evidence is the missing production counter
             log.exception("duty phase failed at slot %d", slot)

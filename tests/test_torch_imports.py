@@ -55,6 +55,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "telemetry", "tracing", "utils.env", "validator.harness", "validator.pool",
         "validator.scheduler",
         "serve_cache", "witness", "witness.coalesce", "witness.multiproof",
+        "compression", "compression.snappy", "faults", "network", "network.gossip",
+        "network.noise", "network.peerbook", "network.port", "network.proto",
+        "network.proto.p2p_pb2", "network.proto.port_pb2", "network.reqresp",
+        "network.sidecar",
         "witness.service", "witness.vector_commitment", "witness.verify",
     ):
         assert prefix + module in names
