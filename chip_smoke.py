@@ -139,6 +139,30 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    power limit, with the ``protobuf`` and ``cryptography`` versions and
    whether ``yaml`` imports (``config.load_config_file`` then checked on a
    devnet overlay);
+3h. the Beacon API on phase 3g's store (its head the block's
+   1,000,000-validator post-state, its finalized checkpoint phase 3c's
+   anchor, phase 3f's forensics plane attached): a ``BeaconApiServer`` on
+   the card at 127.0.0.1:0, its loop in a thread of its own, asked by
+   client threads over real sockets: health, identity, the block root by
+   ``head``, root and slot (== ``get_head``), block v2 (``body_root`` ==
+   the body's hashlib root); the head's state root (== its block's
+   ``state_root``) and a repeat answered by the response cache with no
+   launch; a witness proof for ``head`` in JSON (the witness engine roots
+   the state cold on the card) and in SSZ, its root the block's
+   ``state_root`` and ``verify_host`` True, both repeated as hits with no
+   launch; phase 3d's verify mix (32 threads x 8 POSTs of 1-4 proofs
+   anchored at ``head``, one proof corrupted, every verdict ==
+   ``verify_host``, flushes by trigger) and one POST of 256 proofs (one
+   plane); ``harness.run_mixed_traffic`` for 5 s (no non-200 answer, no
+   invalid verdict); ``/metrics`` parsed (one TYPE line a family,
+   ``api_request_seconds`` for every route hit), ``/debug/slo`` printed row
+   by row (never failed on a budget), the forensics and trace routes
+   parsed, ``/debug/compile``, ``/debug/profile`` and ``POST
+   /debug/profile/capture`` 501; checkpoint sync of the finalized state
+   (``fetch_finalized_state``: encode, transfer, decode timed apart and
+   the bytes counted), rooted on the SHA-256 kernel == the finalized
+   block's ``state_root``; each step's seconds and launches and the peak
+   device memory printed beside the card's name and power limit;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -222,7 +246,9 @@ SHA-256 kernel, its vector commitment the three field kernels; phase 3e's
 proposals the SHA-256 kernel, its re-signed flushes the three field
 kernels; phase 3f's traced and malformed drains the three field kernels;
 phase 3g's blob and aggregate flushes the three field kernels, its scan
-and resume the SHA-256 kernel).  A call on
+and resume the SHA-256 kernel; phase 3h's state root, cold witness proof,
+verify planes, mixed traffic and checkpoint sync's root the SHA-256
+kernel, and its repeated GETs none).  A call on
 its default route through a size gate must launch every field kernel at or
 above the gate's threshold and none below it.  Needs one card, ``nvcc``,
 ``cuobjdump`` and ``g++``; exits nonzero without a card.  Longer records
@@ -351,6 +377,9 @@ OBS_DRAIN, OBS_CONTAIN = 1024, 16
 INGEST_BLOCK_MS, INGEST_BLOB_MS, INGEST_ATT_MS, INGEST_MAX_ITEMS = 25, 50, 150, 24576
 INGEST_AGGREGATES = 1024
 WIRE_BURST = 64
+# the Beacon API (phase 3h): run_mixed_traffic's window, seconds (1 GET
+# thread, 8 POST threads of 16 proofs: the harness's MIXED_* constants)
+API_TRAFFIC_S = 5.0
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21))
@@ -3083,6 +3112,363 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     return fq_hist, sha_hist
 
 
+# ---- the Beacon API on the card (phase 3h)
+
+
+def _http(port: int, method: str, path: str, body: bytes | None = None,
+          ctype: str = "") -> tuple:
+    """One request over a fresh loopback connection from the calling
+    thread: (status code, Content-Type, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body, headers={"Content-Type": ctype} if ctype else {})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def _http_json(port: int, method: str, path: str, body: bytes | None = None) -> dict:
+    status, ctype, payload = _http(port, method, path, body,
+                                   "application/json" if body is not None else "")
+    if status != 200 or ctype != "application/json":
+        raise AssertionError(f"{method} {path}: {status} {ctype} {payload[:200]!r}")
+    return json.loads(payload)
+
+
+_PROM_SAMPLE = re.compile(r'^[A-Za-z_:][A-Za-z0-9_:]*(\{([A-Za-z_][A-Za-z0-9_]*="(\\.|[^"\\])*",?)*\})? '
+                          r'\S+$')
+
+
+def _parse_prometheus(text: str) -> dict:
+    """Families by name from Prometheus text (0.0.4): each sample line
+    parsed, each ``# TYPE`` line once."""
+    families: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, typ = line.split()
+            if name in families:
+                raise AssertionError(f"/metrics: a second TYPE line for {name}")
+            families[name] = typ
+        elif line and not line.startswith("#"):
+            if not _PROM_SAMPLE.match(line):
+                raise AssertionError(f"/metrics: unparsable line {line!r}")
+            float(line.rsplit(" ", 1)[1])
+    return families
+
+
+def api_phase(dev, record: dict, card: str, spec, store) -> int:
+    """Phase 3h: the Beacon API on the card, on phase 3g's store (its head
+    the 1,000,000-validator post-state of phase 3g's block, its finalized
+    checkpoint phase 3c's anchor state, phase 3f's forensics plane
+    attached).
+
+    A ``BeaconApiServer`` on 127.0.0.1:0 with ``device`` the card, its
+    event loop in a thread of its own (``harness.serving_thread``); every
+    request from client threads over real sockets, but the mixed traffic,
+    which the harness drives through the server's worker-thread dispatch.
+    In order: (1) health, identity, the block root by ``head``, by root and
+    by slot (== ``get_head``), block v2 (``body_root`` == the body's
+    hashlib root); (2) the head's state root (== its block's
+    ``state_root``) and a repeat, a response-cache hit; (3) a witness proof
+    for ``head`` in JSON, which roots the state cold on the witness
+    engine, and in SSZ (one proof, its root the block's ``state_root``,
+    ``verify_host`` True), each repeated as a hit; (4) phase 3d's request
+    mix, COALESCE_THREADS clients x COALESCE_REQUESTS POSTs of 1-4 proofs
+    anchored at ``head``, one proof corrupted (every verdict ==
+    ``verify_host``); (5) one POST of ``coalesce.MAX_FLUSH`` proofs, one
+    plane; (6) ``run_mixed_traffic`` for API_TRAFFIC_S; (7) ``/metrics``
+    parsed (one TYPE line a family, ``api_request_seconds`` for every
+    route hit), ``/debug/slo`` printed row by row, the forensics and trace
+    routes parsed, the unported routes 501; (8) checkpoint sync of the
+    finalized state (``fetch_finalized_state``), rooted on the SHA-256
+    kernel == the finalized block's ``state_root``.  Every step's seconds
+    and launches are printed beside the card's name and power limit; a
+    step that must launch the SHA-256 kernel and did not fails the run, a
+    repeat that launched anything too.  Returns the phase's SHA-256
+    launches."""
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+    from lambda_ethereum_consensus_tpu_torch.api import BeaconApiServer, checkpoint_sync, harness
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.ssz import HashlibBackend
+    from lambda_ethereum_consensus_tpu_torch.telemetry import get_metrics
+    from lambda_ethereum_consensus_tpu_torch.types import BeaconState
+    from lambda_ethereum_consensus_tpu_torch.witness import coalesce
+    from lambda_ethereum_consensus_tpu_torch.witness.multiproof import WitnessProof, verify_host
+
+    t_phase = time.perf_counter()
+    _reset_peak()
+    metrics = get_metrics()
+    steps: dict = {}
+    out: dict = {"steps": steps}
+
+    def begin():
+        _zero_fq_launches()
+        sops.sha256_kernel_launches = 0
+        _sync()
+        return time.perf_counter()
+
+    def end(name: str, t0: float, need_sha: bool | None, **extra) -> dict:
+        """``need_sha``: True, the step must launch the SHA-256 kernel;
+        False, it must launch nothing; None, either."""
+        _sync()
+        steps[name] = dict(seconds=time.perf_counter() - t0, fq_launches=_launches(),
+                           sha256_launches=sops.sha256_kernel_launches, **extra)
+        launched = steps[name]["sha256_launches"] + _total(steps[name]["fq_launches"])
+        if need_sha and not steps[name]["sha256_launches"]:
+            raise AssertionError(f"{name} (phase 3h) launched no SHA-256 kernel")
+        if need_sha is False and launched:
+            raise AssertionError(f"{name} (phase 3h) launched {launched} kernels")
+        return steps[name]
+
+    def hits(kind: str) -> float:
+        return metrics.get("serve_cache_hit_total", cache="response", kind=kind)
+
+    head = FC.get_head(store, spec)
+    head_block = store.blocks[head]
+    state_root = bytes(head_block.state_root)
+    fin = bytes(store.finalized_checkpoint.root)
+    api = BeaconApiServer(store=store, spec=spec, device=dev)
+    fin_state = store.block_states[fin]
+    with harness.serving_thread(api) as base:
+        port = api.port
+        # ---- (1) the basic routes
+        t0 = begin()
+        if _http(port, "GET", "/eth/v1/node/health") != (200, "application/json", b"{}"):
+            raise AssertionError("health")
+        if _http_json(port, "GET", "/eth/v1/node/identity")["data"]["peer_id"] != "":
+            raise AssertionError("identity")
+        for block_id in ("head", "0x" + head.hex(), str(int(head_block.slot))):
+            got = _http_json(port, "GET", f"/eth/v1/beacon/blocks/{block_id}/root")
+            if got != {"data": {"root": "0x" + head.hex()}}:
+                raise AssertionError(f"block root by {block_id}: {got}")
+        v2 = _http_json(port, "GET", "/eth/v2/beacon/blocks/head")["data"]["message"]
+        body_root = head_block.body.hash_tree_root(spec, backend=HashlibBackend())
+        if v2["body_root"] != "0x" + body_root.hex() or \
+                v2["state_root"] != "0x" + state_root.hex() or v2["slot"] != str(head_block.slot):
+            raise AssertionError(f"block v2 {v2}")
+        end("basic routes", t0, None)
+        # ---- (2) the head's state root, then a repeat from the response cache
+        path = "/eth/v1/beacon/states/head/root"
+        t0 = begin()
+        got = _http_json(port, "GET", path)
+        end("state root", t0, True)
+        if got != {"data": {"root": "0x" + state_root.hex()}}:
+            raise AssertionError(f"state root {got} != the block's {state_root.hex()}")
+        before = hits("state_root")
+        t0 = begin()
+        if _http_json(port, "GET", path) != got or hits("state_root") != before + 1:
+            raise AssertionError("the repeated state root missed the response cache")
+        end("state root again", t0, False)
+        # ---- (3) a witness proof for head, cold on the witness engine, then SSZ
+        n = len(store.block_states[head].validators)
+        query = f"indices=balances:{17 % n},validators:{42 % n},inactivity_scores:{n - 1}"
+        t0 = begin()
+        proof_json = _http_json(port, "GET", f"/eth/v0/witness/head?{query}")["data"]
+        end("witness proof", t0, True)
+        t0 = begin()
+        status, ctype, ssz = _http(port, "GET", f"/eth/v0/witness/head?{query}&format=ssz")
+        end("witness proof ssz", t0, False)
+        proof = WitnessProof.from_json(proof_json)
+        if status != 200 or ctype != "application/octet-stream" or \
+                WitnessProof.decode(ssz) != proof or proof.state_root != state_root or \
+                not verify_host(proof, state_root):
+            raise AssertionError(f"witness proof: {status} {ctype}, root "
+                                 f"{proof.state_root.hex()} != {state_root.hex()} or rejected")
+        before = hits("witness")
+        t0 = begin()
+        if _http_json(port, "GET", f"/eth/v0/witness/head?{query}")["data"] != proof_json or \
+                _http(port, "GET", f"/eth/v0/witness/head?{query}&format=ssz")[2] != ssz or \
+                hits("witness") != before + 2:
+            raise AssertionError("the repeated witness proofs missed the response cache")
+        end("witness proof again", t0, False)
+        out["proof_bytes"] = {"json": len(json.dumps(proof_json)), "ssz": len(ssz)}
+        # ---- a pool of single-index proofs for the verify steps, proved on
+        # the server from the retained engine
+        rng = np.random.default_rng(SEED + 17)
+        t0 = begin()
+        pool = []
+        for k in range(coalesce.MAX_FLUSH):
+            field = WITNESS_FIELDS[k % len(WITNESS_FIELDS)]
+            pool.append(_http_json(port, "GET", f"/eth/v0/witness/head?indices="
+                                                f"{field}:{int(rng.integers(n))}")["data"])
+        end("proof pool", t0, False)
+        # ---- (4) phase 3d's concurrent mix, one proof corrupted
+        bad_at = (int(rng.integers(COALESCE_THREADS)), int(rng.integers(COALESCE_REQUESTS)))
+        batches = {}
+        for t in range(COALESCE_THREADS):
+            for r in range(COALESCE_REQUESTS):
+                batch = [pool[int(i)] for i in rng.choice(len(pool), int(rng.integers(1, 5)),
+                                                          replace=False)]
+                if (t, r) == bad_at:
+                    batch[-1] = dict(batch[-1], siblings=["0x" + "5a" * 32] +
+                                     batch[-1]["siblings"][1:])
+                batches[(t, r)] = batch
+        results, errors = {}, []
+
+        def client(t):
+            try:
+                for r in range(COALESCE_REQUESTS):
+                    body = json.dumps({"state_id": "head", "proofs": batches[(t, r)]}).encode()
+                    results[(t, r)] = _http_json(port, "POST", "/eth/v0/witness/verify",
+                                                 body)["data"]
+            except Exception as e:  # noqa: BLE001 - reported and failed below
+                errors.append(e)
+
+        flushes0 = {trig: metrics.get("serve_coalesce_flush_total", trigger=trig)
+                    for trig in ("target", "deadline")}
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(COALESCE_THREADS)]
+        t0 = begin()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        end("verify, concurrent", t0, True)
+        if errors:
+            raise errors[0]
+        for key, batch in batches.items():
+            want = [verify_host(WitnessProof.from_json(p), state_root) for p in batch]
+            got = results[key]
+            if got["results"] != want or want.count(False) != (key == bad_at) or \
+                    not got["anchored"] or got["batch"] != len(batch):
+                raise AssertionError(f"verify request {key}: {got} != verify_host {want}")
+        flushes = {trig: int(metrics.get("serve_coalesce_flush_total", trigger=trig)
+                             - flushes0[trig]) for trig in flushes0}
+        out.update(verify_flushes=flushes, verify_proofs=sum(len(b) for b in batches.values()))
+        # ---- (5) one full plane: MAX_FLUSH proofs in one POST
+        body = json.dumps({"state_id": "head", "proofs": pool}).encode()
+        if len(body) >= BeaconApiServer._MAX_BODY:
+            raise AssertionError(f"a {len(pool)}-proof body of {len(body)} bytes is over "
+                                 f"_MAX_BODY")
+        t0 = begin()
+        got = _http_json(port, "POST", "/eth/v0/witness/verify", body)["data"]
+        end("verify, one plane", t0, True, body_bytes=len(body))
+        if got["results"] != [True] * len(pool) or not got["valid"]:
+            raise AssertionError(f"{got['results'].count(False)} of {len(pool)} rejected")
+        # ---- (6) mixed traffic through the harness
+        t0 = begin()
+        traffic = harness.run_mixed_traffic(api, head, API_TRAFFIC_S)
+        end("mixed traffic", t0, True)
+        if traffic["non_200_count"] or traffic["invalid_verdicts"]:
+            raise AssertionError(f"mixed traffic: {traffic['non_200_count']} non-200 answers "
+                                 f"{traffic['non_200']}, {traffic['invalid_verdicts']} invalid")
+        out["traffic"] = {k: v for k, v in traffic.items() if k != "non_200"}
+        # ---- (7) /metrics and the debug routes
+        t0 = begin()
+        status, ctype, text = _http(port, "GET", "/metrics")
+        if status != 200 or ctype != "text/plain; version=0.0.4":
+            raise AssertionError(f"/metrics: {status} {ctype}")
+        families = _parse_prometheus(text.decode())
+        routes = ("/eth/v1/node/health", "/eth/v1/node/identity",
+                  "/eth/v1/beacon/blocks/{id}/root", "/eth/v2/beacon/blocks/{id}",
+                  "/eth/v1/beacon/states/{id}/root", "/eth/v0/witness/{id}",
+                  "/eth/v0/witness/verify")
+        missing = [r for r in routes
+                   if f'api_request_seconds_count{{route="{r}"}}' not in text.decode()]
+        if families.get("api_request_seconds") != "histogram" or missing:
+            raise AssertionError(f"/metrics: api_request_seconds missing for {missing}")
+        slo_report = _http_json(port, "GET", "/debug/slo")["data"]
+        for route in ("/debug/forkchoice", "/debug/reorgs", "/debug/finality", "/debug/trace"):
+            _http_json(port, "GET", route)
+        for method, route in (("GET", "/debug/compile"), ("GET", "/debug/profile"),
+                              ("POST", "/debug/profile/capture")):
+            status = _http(port, method, route, b"{}" if method == "POST" else None,
+                           "application/json" if method == "POST" else "")[0]
+            if status != 501:
+                raise AssertionError(f"{method} {route} answered {status}, not 501")
+        end("metrics and debug routes", t0, None, families=len(families),
+            metrics_bytes=len(text))
+        # ---- (8) checkpoint sync of the finalized state, rooted on the card
+        timing: dict = {}
+        real_encode = BeaconState.encode
+
+        def timed_encode(self, spec=None):
+            t = time.perf_counter()
+            raw = real_encode(self, spec)
+            timing.update(encode_s=time.perf_counter() - t, encoded_at=time.perf_counter(),
+                          bytes=len(raw))
+            return raw
+
+        class TimedDecode:
+            """checkpoint_sync's ``BeaconState``, its decode timed."""
+
+            @staticmethod
+            def decode(data, spec=None):
+                t = time.perf_counter()
+                timing["decode_from"] = t
+                state = BeaconState.decode(data, spec)
+                timing["decode_s"] = time.perf_counter() - t
+                return state
+
+        t0 = begin()
+        with _constant(BeaconState, "encode", timed_encode), \
+                _constant(checkpoint_sync, "BeaconState", TimedDecode):
+            synced = checkpoint_sync.fetch_finalized_state(base, spec=spec, timeout=600)
+        fetch_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        synced_root = synced.hash_tree_root(spec, backend=sops.DeviceHashBackend(dev))
+        _sync()
+        root_s = time.perf_counter() - t1
+        end("checkpoint sync", t0, True, fetch_s=fetch_s, root_s=root_s,
+            encode_s=timing["encode_s"], decode_s=timing["decode_s"],
+            transfer_s=timing["decode_from"] - timing["encoded_at"], bytes=timing["bytes"])
+        want = bytes(store.blocks[fin].state_root)
+        if synced_root != want or len(synced.validators) != len(fin_state.validators):
+            raise AssertionError(f"checkpoint sync: root {synced_root.hex()} != the finalized "
+                                 f"block's {want.hex()}")
+        del synced
+    peak = _peak_mib()
+    seconds = time.perf_counter() - t_phase
+    sha_total = sum(s["sha256_launches"] for s in steps.values())
+    out.update(peak_mib=peak, seconds=seconds, sha256_launches=sha_total,
+               slo=[{k: r.get(k) for k in ("slo", "count", "observed", "budget", "ok", "status",
+                                           "burn_rates", "breaching")}
+                    for r in slo_report["slos"]])
+
+    def line(name: str) -> str:
+        s = steps[name]
+        return f"{name} {s['seconds']:.3f} s ({s['sha256_launches']} SHA-256)"
+
+    print(f"api: BeaconApiServer on the card at 127.0.0.1:{port}, {len(fin_state.validators)} "
+          f"validators; {line('basic routes')}; {line('state root')} == the head block's "
+          f"state_root, {line('state root again')} a response-cache hit [{card}]")
+    print(f"api: {line('witness proof')} (the witness engine's cold root; "
+          f"{out['proof_bytes']['json']} JSON bytes), {line('witness proof ssz')} "
+          f"({out['proof_bytes']['ssz']} bytes, == the JSON proof, root == state_root, "
+          f"verify_host True), {line('witness proof again')} both hits; "
+          f"{line('proof pool')} ({len(pool)} proofs) [{card}]")
+    print(f"api: {line('verify, concurrent')}: {COALESCE_THREADS} threads x "
+          f"{COALESCE_REQUESTS} POSTs ({out['verify_proofs']} proofs), flushes by trigger "
+          f"{flushes}, every verdict == verify_host, only the corrupted proof False; "
+          f"{line('verify, one plane')} ({len(pool)} proofs, "
+          f"{steps['verify, one plane']['body_bytes']} body bytes), all True [{card}]")
+    print(f"api: {line('mixed traffic')}: {traffic['requests']} requests in "
+          f"{traffic['duration_s']:.3f} s ({traffic['req_per_sec']:.1f} a second; "
+          f"{traffic['get_requests']} GET, {traffic['post_requests']} POST of "
+          f"{traffic['proofs_per_post']}), cache hit ratio {traffic['cache_hit_ratio']}, mean "
+          f"coalesced batch {traffic['coalesce_mean_batch']}, 0 non-200, 0 invalid [{card}]")
+    print(f"api: {line('metrics and debug routes')}: /metrics {len(text)} bytes, "
+          f"{len(families)} families, one TYPE line each, api_request_seconds for every route "
+          f"hit; /debug/forkchoice, reorgs, finality and trace parsed; /debug/compile, "
+          f"/debug/profile and POST /debug/profile/capture 501 [{card}]")
+    for r in out["slo"]:
+        observed = "no data" if r["observed"] is None else f"{r['observed']:.6f} s"
+        print(f"  /debug/slo {r['slo']}: observed p{r['slo'].rsplit('_p', 1)[-1]} {observed} "
+              f"over {r['count']} against {r['budget']} s, ok {r['ok']}, burn "
+              f"{r['burn_rates']}")
+    c = steps["checkpoint sync"]
+    print(f"api: checkpoint sync of the finalized state ({c['bytes']} bytes): encode "
+          f"{c['encode_s']:.3f} s, transfer {c['transfer_s']:.3f} s, decode {c['decode_s']:.3f} "
+          f"s, root {c['root_s']:.3f} s on the card ({c['sha256_launches']} SHA-256) == the "
+          f"finalized block's state_root; {c['seconds']:.3f} s in all [{card}]")
+    print(f"api: {sha_total} SHA-256 launches in the phase; peak device memory {peak:.0f} MiB; "
+          f"phase {seconds:.1f} s [{card}]")
+    record["api"] = out
+    return sha_total
+
+
 class _MetricCounts:
     """A metrics sink for the witness modules: counts each ``inc`` by name
     and labels, each ``observe`` as ``<name>_count`` and each span as
@@ -4574,6 +4960,11 @@ def main() -> int:
                                               transition["start_sks"], keys, setup, blobs,
                                               commitments, proofs)
     print(f"ingest phase {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3h: the Beacon API on the card, on phase 3g's store
+    t0 = time.perf_counter()
+    api_launches = api_phase(dev, record, card, spec, ingest_store)
+    print(f"API phase {time.perf_counter() - t0:.1f} s")
     del ingest_store, ingest_drain
     blob = blobs[0]
 
@@ -4616,6 +5007,7 @@ def main() -> int:
         "source": "lambda_ethereum_consensus_tpu_torch/csrc/sha256.cu",
         "replaces": "lambda_ethereum_consensus_tpu/ops/sha256.py:191",
         "launches": launches[1],
+        "api_launches": api_launches,
         "max_abs_err": max_err,
         "n": big_n,
         "ms": t["kernel_ms"],

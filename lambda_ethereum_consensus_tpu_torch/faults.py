@@ -7,8 +7,10 @@ raised again from the loop's next entry point.  Every other exception is
 contained per item, as in the JAX package.
 
 The wire's errors (``network.port.PortError``, ``network.reqresp.ReqRespError``)
-are ``RuntimeError`` subclasses too, as in the JAX package, but a sidecar
-hiccup is no device fault: they derive from :class:`WireError`, which
+and the HTTP clients' (``api.engine.EngineApiError``,
+``api.checkpoint_sync.CheckpointSyncError``) are ``RuntimeError`` subclasses
+too, as in the JAX package, but a sidecar hiccup or an unreachable peer is no
+device fault: they derive from :class:`WireError`, which
 :func:`is_device_fault` excludes.  Every site that applies the rule asks this
 one predicate.  The module imports nothing, so the sidecar process may load
 it.

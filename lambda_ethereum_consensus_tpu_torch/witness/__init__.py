@@ -21,7 +21,7 @@ Submodules:
   :mod:`.coalesce` — cross-request batching of verify requests.
 
 The port's copy of the JAX package's ``witness/``; the beacon API routes
-that serve it are not ported yet.
+that serve it are :mod:`..api.beacon_api`'s.
 """
 
 from .multiproof import (  # noqa: F401

@@ -31,7 +31,8 @@ The port's copy of the JAX package's ``witness/coalesce.py``.  Its
 variables become constants with the same defaults: the deadline
 (``WITNESS_COALESCE_DEADLINE_MS``, 25 ms), the target and the flush cap
 (the JAX package's smallest and largest ``witness_verify`` buckets, 64
-and 256); ``WITNESS_NO_COALESCE`` belongs to the API route, not ported.
+and 256); ``WITNESS_NO_COALESCE`` is not read: the port's verify route
+(``api/beacon_api.py``) always coalesces.
 """
 
 from __future__ import annotations

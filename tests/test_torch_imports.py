@@ -60,5 +60,6 @@ def test_port_imports_without_jax_or_the_jax_package():
         "network.proto.p2p_pb2", "network.proto.port_pb2", "network.reqresp",
         "network.sidecar",
         "witness.service", "witness.vector_commitment", "witness.verify",
+        "slo", "api", "api.beacon_api", "api.checkpoint_sync", "api.engine", "api.harness",
     ):
         assert prefix + module in names
