@@ -48,12 +48,12 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    aggregate) imported with ``on_block`` through the committee-cache
    branch (profiled, SHA-256 and field launches counted), its post-state
    rooted again through hashlib, a copy with one signature swapped
-   rejected; ``on_attestation_batch`` of two aggregates per committee from
-   the block's slot to the epoch's end (3,840, one at 50 % over ``mmax``),
+   rejected; ``on_attestation_batch`` of one aggregate per committee from
+   the block's slot to the epoch's end (1,856, one at 50 % over ``mmax``),
    cold, warm and profiled on the cached body with its sparse entries on
    the device chain (the set gate at 0), every verdict None, the latest
    messages exactly the participants' votes and ``get_head`` the block; a
-   second drain of 512 fresh aggregates blaming exactly its forged one
+   second drain of 128 fresh aggregates blaming exactly its forged one
    (``reject=True``) on the cached body, its default route; 64 aggregates
    against the host oracle (native ``rlc_verify``); the aggregates over
    ``mmax`` counted through the block's and the cold drain's host-sum
@@ -163,13 +163,35 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    the bytes counted), rooted on the SHA-256 kernel == the finalized
    block's ``state_root``; each step's seconds and launches and the peak
    device memory printed beside the card's name and power limit;
+3i. one ``BeaconNode`` booted on the card at phase 3g's store's finalized
+   checkpoint (phase 3c's epoch-start state, slot f): a copy of the
+   1,000,000-validator state re-based so the wall clock's slot is f+2,
+   given an empty-body header at slot f and rooted on the SHA-256 kernel,
+   the node's own default anchor block for it; the block of slot f+1
+   signed by ``produce_block`` and 1,024 aggregates on it (the 64
+   committees of slot f+1 x 16, their target the anchor) minted on the
+   card; the node, its
+   device left at its default, booted (anchor root, store write, store
+   build, sidecar and API timed apart); a bare port ``Port`` with the node
+   as its bootnode publishing the block (the node's block lane, a scan
+   parks it behind phase 8's six commitments, registered on its DA gate),
+   the six sidecars (its blob lane, one fold on the card; a scan applies
+   the block with ``on_block`` on the card and ``_on_applied`` stores it
+   with its post-state) and the aggregates (its aggregate lane, every
+   verdict ACCEPT after a direct drain on the node's store built the epoch
+   context, each flush's field launches == a direct drain of its members);
+   ``GET /eth/v1/beacon/blocks/head/root`` from the node's API
+   == the block's root, ``/debug/lanes`` and ``/debug/slot`` read;
+   ``stop()`` raising nothing and putting the previous hash backend back;
+   each step's seconds and launches printed beside the card's name and
+   power limit;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
    ``batch_verify_each_cached``, cold and warm, every verdict equal to the
    construction, with the field kernels' launch counts read around each
-   drain; a second drain with one aggregate signed by the wrong key, whose
-   bisection must blame exactly that entry; two committees' device sums
+   drain; the drain's first 1,024 with one aggregate signed by the wrong
+   key, whose bisection must blame exactly that entry; two committees' device sums
    against the host sums of their members; and a small sub-drain against
    the host ``pairing_check`` oracle;
 5. duty signing: 1,024 seeded keys signing 64 messages (16 signers each,
@@ -185,7 +207,7 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    ``rlc_verify``); then each of those calls once more on its default
    route, whose launches must be what ``DEVICE_CHAIN_MIN`` picks;
 6b. the size routes, each route forced through its constant and timed warm
-   (median of 3), every route's verdicts equal, each row printed beside the
+   (one run each), every route's verdicts equal, each row printed beside the
    card's name and power limit: a set through ``verify_points`` on the
    device chain and on the host tail at 32,768 down to 1 entries (tiled
    from phase 6's entries); ``on_attestation_batch`` of the first 4 to
@@ -222,8 +244,9 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    the fold ``False`` and ``verify_blob_proof`` blaming exactly that blob;
 9. the field kernels at the lane counts the drain, a sign flush, a KZG
    MSM, the block import, the fork-choice drain, the mainnet block
-   import, the vector-commitment fold and the ingest path of phase 3g
-   launch them with (launch-weighted median and 90th percentile): each
+   import, the vector-commitment fold, the ingest path of phase 3g and the
+   node of phase 3i launch them with (launch-weighted median and 90th
+   percentile): each
    against its plain version there, bit for bit, with a full and a
    broadcast (32, 1) right operand, then timed beside an empty kernel
    launched with the same grid (what a bare launch costs);
@@ -233,7 +256,8 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    blocks, each held and timed from 2,048 lanes to 2^20, which sets
    ``SUB_GROUP`` and its block size; and the SHA-256 kernel at the median
    and 90th-percentile node counts of a root's launches, of the witness
-   plane's and of the ingest path's, held against its plain version and
+   plane's, of the ingest path's and of the node's, held against its plain
+   version and
    timed beside a bare launch
    and its bound;
 10. one JSON line of per-kernel numbers, then the device line last.
@@ -248,7 +272,8 @@ kernels; phase 3f's traced and malformed drains the three field kernels;
 phase 3g's blob and aggregate flushes the three field kernels, its scan
 and resume the SHA-256 kernel; phase 3h's state root, cold witness proof,
 verify planes, mixed traffic and checkpoint sync's root the SHA-256
-kernel, and its repeated GETs none).  A call on
+kernel, and its repeated GETs none; phase 3i's boot and block the SHA-256
+kernel, its blob and aggregate lanes the three field kernels).  A call on
 its default route through a size gate must launch every field kernel at or
 above the gate's threshold and none below it.  Needs one card, ``nvcc``,
 ``cuobjdump`` and ``g++``; exits nonzero without a card.  Longer records
@@ -281,17 +306,23 @@ N_VALIDATORS = 1_000_000
 CHECK_SIZES = (1, 7, 255, 1000, 1 << 20)
 TIMED_SIZES = (1 << 20, 8_000_000)
 FQ_SIZES = (1, 7, 33, 1024, 4072, 20360, 1 << 20)  # the last is timed
-# lane counts at which mul_mod's two bodies are timed against each other
-MUL_SWEEP = (4072, 8192, 9216, 10240, 12288, 16384, 20360, 65536, 262144, 1 << 20)
+# lane counts at which mul_mod's two bodies are timed against each other (both
+# sides of MUL_GROUP_THRESHOLD, and 2^20)
+MUL_SWEEP = (4072, 8192, 9216, 10240, 16384, 1 << 20)
 # lane counts and (threads per element, threads per block) of sub_mod's sweep:
-# the sign flush's p50, the drain's p50 and p90, and 2^20
-SUB_SWEEP = (2048, 4072, 6144, 16288, 1 << 20)
+# the drain's p50 and p90, and 2^20
+SUB_SWEEP = (4072, 16288, 1 << 20)
+# profiled launches per window of phase 9's timings at the paths' shapes
+TIMING_REPS = 100
 SUB_BODIES = tuple((g, t) for g in (1, 2, 4) for t in (64, 128))
 FQ_KERNELS = ("mul_mod", "add_mod", "sub_mod")
 # the drain of scripts/bench_chain.py:60-67 (BASELINE.json "128 Attestations
 # x 2048-validator committees"): 2 x 127 messages x 16 aggregates
 N_COMMITTEES, COMMITTEE = 256, 2048
 INSTANCES, GROUPS, AGGS = 2, 127, 16
+# the tampered drain: the drain's first TAMPER_DRAIN aggregates, one signed by
+# the wrong key
+TAMPER_DRAIN = 1024
 # the Pallas kernel bodies the field kernels replace
 _REPLACES = {"mul_mod": "127", "add_mod": "108", "sub_mod": "116"}
 # duty signing: one sign_batch dispatch, an operator's slot of
@@ -315,7 +346,7 @@ ATT_COMMITTEES = 8
 # end, a second drain of SECOND_DRAIN fresh aggregates with one forged, and
 # ORACLE_SAMPLE aggregates against the host oracle
 REGISTRY_KEYS, DISTINCT_KEYS = 16_384, 65_536
-BLOCK_SLOTS, DRAIN_COPIES, SECOND_DRAIN, ORACLE_SAMPLE = 2, 2, 512, 64
+BLOCK_SLOTS, DRAIN_COPIES, SECOND_DRAIN, ORACLE_SAMPLE = 2, 1, 128, 64
 # the witness plane (phase 3d): (requests, indices each), every request over
 # one of WITNESS_FIELDS — 2,048 proofs, one plane of 2,048 x 1,024 padded
 # slots (2^21, the footprint guard); WITNESS_SAMPLE of them against the
@@ -342,7 +373,7 @@ VC_OPENED, VC_FOLD, VC_FOLD_WIDTH = 16, 16, 4
 ROUTE_SET_SIZES = (32768, 16384, 8192, 4096, 2048, 1024, 128, 16, 1)
 ROUTE_DRAIN_SIZES = (4, 8, 16, 64, 128, 256, 512, 1024)
 ROUTE_BLOCK_SIZES = (16, 32, 64)
-ROUTE_REPS, ROUTE_COLD_DRAIN, ROUTE_STOP = 3, 64, 2
+ROUTE_REPS, ROUTE_COLD_DRAIN, ROUTE_STOP = 1, 64, 2
 # the tail's three paths (part d) run once on each tail
 TAIL_PATH_REPS = 1
 # the pairing tail alone (size routes, part d): TAIL_SIZES checks of two
@@ -380,9 +411,14 @@ WIRE_BURST = 64
 # the Beacon API (phase 3h): run_mixed_traffic's window, seconds (1 GET
 # thread, 8 POST threads of 16 proofs: the harness's MIXED_* constants)
 API_TRAFFIC_S = 5.0
+# the node on the card (phase 3i): NODE_AGG_COPIES aggregates per committee of
+# the new block's slot, each at 90-100 % participation; Deneb scheduled at
+# mainnet's epoch (the presets leave it unscheduled)
+NODE_AGG_COPIES = 16
+MAINNET_DENEB_EPOCH = 269_568
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
-CROSSOVER_LOG2 = tuple(range(8, 21))
+CROSSOVER_LOG2 = tuple(range(8, 21, 2))
 
 # H100 SXM, from the data sheet and the Hopper white paper: HBM3 rate, SMs,
 # INT32 lanes per SM (the ALU pipe) and thread-instructions an SM can issue
@@ -819,18 +855,19 @@ def bls_phase(dev, rng, record: dict) -> dict:
         attempts=2)
     print(_idle_line("drain", prof_s, busy_ms))
 
-    # one aggregate signed by the wrong key: the bisection must blame it alone
-    n = len(entries)
+    # one aggregate signed by the wrong key in the first TAMPER_DRAIN: the
+    # bisection must blame it alone
+    n = TAMPER_DRAIN
     bad = n // 3
     comm_id, miss, msg, _ = entries[bad]
-    tampered = list(entries)
+    tampered = list(entries[:n])
     tampered[bad] = (comm_id, miss, msg, C.g2.multiply_raw(h_points[bad // AGGS], agg_sk[bad] + 1))
     t0 = time.perf_counter()
     flags = batch_verify_each_cached(cache, tampered, message_points=message_points)
     tamper_s = time.perf_counter() - t0
     if flags != [i != bad for i in range(n)]:
         raise AssertionError(f"tampered drain blamed {[i for i, f in enumerate(flags) if not f]}")
-    print(f"tampered drain: bisection blamed exactly entry {bad} in {tamper_s:.3f} s")
+    print(f"tampered drain of {n}: bisection blamed exactly entry {bad} in {tamper_s:.3f} s")
 
     # a small sub-drain against the host pairing_check oracle
     pick = sorted({0, 1, AGGS + 1, bad, 2 * n // 3, n - 1})
@@ -1552,7 +1589,7 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
     sync aggregate) is minted and imported with ``on_block`` (counted and
     profiled, through the committee-cache branch), its post-state rooted
     again through hashlib, and a copy with one signature swapped rejected.
-    Then ``on_attestation_batch`` drains two aggregates per committee from
+    Then ``on_attestation_batch`` drains DRAIN_COPIES aggregates per committee from
     the block's slot to the epoch's end (one at about 50 %, over ``mmax``),
     cold, warm and profiled, every verdict None, the latest messages exactly
     the participants' votes for the block and ``get_head`` the block; a
@@ -1758,7 +1795,7 @@ def node_phase(dev, rng, record: dict, spec, start, start_sks: dict, sync_keys: 
                         idle_share=1 - busy / 1e3 / wall, fq_launches=fq,
                         sha256_launches=sha, hashlib_root_s=hashlib_s, reject_s=reject_s)
 
-    # ---- the drain: two aggregates per committee, block slot to epoch end
+    # ---- the drain: DRAIN_COPIES aggregates per committee, block slot to epoch end
     FC.on_tick(store, store.genesis_time + (first + spec.SLOTS_PER_EPOCH) * spec.SECONDS_PER_SLOT,
                spec)
     post_ws = BeaconStateMut(imported)
@@ -2348,9 +2385,10 @@ class _LaneSource:
     subscription sends back to the sidecar.  Each flush's size and verdicts
     are recorded; a wire flush also records its members, their message ids
     and its field launches (the counters read around ``body``, which runs
-    to its end without yielding the event loop).  The node's three bodies
-    below (``lambda_ethereum_consensus_tpu/node/node.py``) live here until the
-    port's ``node/node.py`` takes them."""
+    to its end without yielding the event loop).  The three bodies below
+    are phase 3g's copies of ``node/node.py``'s, so that phase holds the
+    path below the node item by item (adversaries submitted straight into
+    a lane); phase 3i drives the node's own."""
 
     def __init__(self, body, extract=None):
         self.body = body
@@ -2550,36 +2588,6 @@ async def _verdicts_in(spy: dict, n: int, sched, what: str, limit_s: float = 300
         await asyncio.sleep(0.001)
 
 
-class _StoreChain:
-    """The ``ChainView`` the sender's ``ReqRespServer`` answers from: phase
-    3g's fork-choice store and its ``BlockStore``.  It lives here until the
-    port's ``node/chain.py`` takes its place."""
-
-    def __init__(self, store, blocks_db, spec, digest: bytes):
-        self.store, self.blocks_db, self.spec, self.digest = store, blocks_db, spec, digest
-
-    def status(self):
-        from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
-        from lambda_ethereum_consensus_tpu_torch.types.p2p import StatusMessage
-
-        head = FC.get_head(self.store, self.spec)
-        fin = self.store.finalized_checkpoint
-        return StatusMessage(fork_digest=self.digest, finalized_root=fin.root,
-                             finalized_epoch=fin.epoch, head_root=head,
-                             head_slot=self.store.blocks[head].slot)
-
-    def metadata(self):
-        from lambda_ethereum_consensus_tpu_torch.types.p2p import Metadata
-
-        return Metadata(seq_number=0)
-
-    def block_by_slot(self, slot):
-        return self.blocks_db.get_block_by_slot(slot, self.spec)
-
-    def block_by_root(self, root):
-        return self.blocks_db.get_block(root, self.spec)
-
-
 async def _flushed(sched, source: _LaneSource, flushes: int) -> None:
     """Wait until ``source`` has taken ``flushes`` flushes and the
     scheduler holds nothing queued or in flight."""
@@ -2605,10 +2613,9 @@ def _path_shapes(fq_hist: Counter, sha_hist: Counter):
     sha_hist.update(sha)
 
 
-def _blob_sidecars(spec, signed, blobs, commitments, proofs) -> tuple[list, list]:
-    """The block's six sidecars, each on its subnet, and the three
-    adversaries, interleaved: ``[(subnet, sidecar)]`` and what each must
-    get, ``[(verdict, linkage or None)]``."""
+def _sidecar_maker(spec, signed, blobs):
+    """``sidecar(index, commitment, proof)`` -> ``(subnet, BlobSidecar)`` of
+    blob ``index`` under ``signed``'s header."""
     from lambda_ethereum_consensus_tpu_torch.types import (
         BeaconBlockHeader, SignedBeaconBlockHeader,
     )
@@ -2627,6 +2634,14 @@ def _blob_sidecars(spec, signed, blobs, commitments, proofs) -> tuple[list, list
                                               kzg_commitment=commitment, kzg_proof=proof,
                                               signed_block_header=header))
 
+    return sidecar
+
+
+def _blob_sidecars(spec, signed, blobs, commitments, proofs) -> tuple[list, list]:
+    """The block's six sidecars, each on its subnet, and the three
+    adversaries, interleaved: ``[(subnet, sidecar)]`` and what each must
+    get, ``[(verdict, linkage or None)]``."""
+    sidecar = _sidecar_maker(spec, signed, blobs)
     honest = [sidecar(i, commitments[i], proofs[i]) for i in range(len(blobs))]
     swapped = sidecar(0, commitments[0], proofs[1])  # REJECT once the fold fails
     mismatch = sidecar(2, commitments[3], proofs[3])  # REJECT by the pre-check
@@ -2687,7 +2702,8 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     port sidecars on loopback under the head state's fork digest, the
     receiver's ``TopicSubscription``s for ``beacon_block`` and
     ``beacon_aggregate_and_proof`` feeding the block and aggregate lanes, the
-    sender's ``ReqRespServer`` answering from the store (:class:`_StoreChain`).
+    sender's ``ReqRespServer`` answering from the store through the node's
+    ``LiveChainView``.
     In order: the block of the next slot on the head, signed by
     ``DutyScheduler.produce_block`` as phase 3e's proposals are; ``da.expect``
     of phase 8's six commitments and their versioned hashes; the block
@@ -2731,6 +2747,7 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     from lambda_ethereum_consensus_tpu_torch.network.sidecar import _msg_id
     from lambda_ethereum_consensus_tpu_torch.node import PendingBlocks
     from lambda_ethereum_consensus_tpu_torch.node import pending_blocks as PB
+    from lambda_ethereum_consensus_tpu_torch.node.chain import LiveChainView
     from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
     from lambda_ethereum_consensus_tpu_torch.state_transition import misc
     from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
@@ -2853,7 +2870,7 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
                                       scheduler=sched, lane="aggregate")]
             for s in subs:
                 await s.start()
-            await ReqRespServer(sender, _StoreChain(store, blocks_db, spec, digest), spec).register()
+            await ReqRespServer(sender, LiveChainView(store, blocks_db, spec), spec).register()
             await _announced(sender, receiver, [block_topic, agg_topic])
             wire["setup_s"] = time.perf_counter() - t0
             # the expectation, then the block over the wire and a scan
@@ -3467,6 +3484,484 @@ def api_phase(dev, record: dict, card: str, spec, store) -> int:
           f"phase {seconds:.1f} s [{card}]")
     record["api"] = out
     return sha_total
+
+
+# ---- one beacon node booted on the card (phase 3i)
+
+
+@contextlib.contextmanager
+def _seconds_in(targets: list, into: Counter):
+    """Adds the seconds of each call of ``owner.attr`` (sync or async) to
+    ``into[key]`` for each ``(owner, attr, key)`` of ``targets`` while
+    active."""
+    import inspect
+
+    saved = []
+    for owner, attr, key in targets:
+        real = getattr(owner, attr)
+        own = attr in vars(owner)  # else inherited: deleted again after
+
+        def wrap(real=real, key=key):
+            if inspect.iscoroutinefunction(real):
+                async def timed(*args, **kwargs):
+                    t = time.perf_counter()
+                    try:
+                        return await real(*args, **kwargs)
+                    finally:
+                        into[key] += time.perf_counter() - t
+            else:
+                def timed(*args, **kwargs):
+                    t = time.perf_counter()
+                    try:
+                        return real(*args, **kwargs)
+                    finally:
+                        into[key] += time.perf_counter() - t
+            return timed
+
+        setattr(owner, attr, wrap())
+        saved.append((owner, attr, real, own))
+    try:
+        yield into
+    finally:
+        for owner, attr, real, own in reversed(saved):
+            if own:
+                setattr(owner, attr, real)
+            else:
+                delattr(owner, attr)
+
+
+def _flush_recorder(node, attr: str, members, flushes: list) -> None:
+    """Replaces the node's drain body ``attr`` on the instance with one that
+    records each flush: its size, seconds, field and SHA-256 launches (the
+    counters read around the body, which runs to its end without yielding
+    the event loop) and ``members(*args)``."""
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+
+    real = getattr(node, attr)
+
+    def recorded(*args):
+        _sync()
+        before, sha0, t = _launches(), sops.sha256_kernel_launches, time.perf_counter()
+        verdicts = real(*args)
+        _sync()
+        after = _launches()
+        flushes.append(dict(size=len(args[0]), seconds=time.perf_counter() - t,
+                            t_end=time.perf_counter(), fq_launches={k: after[k] - before.get(k, 0) for k in after},
+                            sha256_launches=sops.sha256_kernel_launches - sha0,
+                            members=members(*args), verdicts=list(verdicts)))
+        return verdicts
+
+    setattr(node, attr, recorded)
+
+
+def _sum_launches(flushes: list) -> dict:
+    total = Counter()
+    for f in flushes:
+        total.update(f["fq_launches"])
+    return {name: total.get(name, 0) for name in FQ_KERNELS}
+
+
+def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: dict,
+                    keys: list[int], blobs: list, commitments: list,
+                    proofs: list) -> tuple[Counter, Counter, dict]:
+    """Phase 3i: one ``BeaconNode`` booted on the card at 1,000,000
+    validators, anchored at phase 3g's store's finalized checkpoint (phase
+    3c's epoch-start state, slot f).
+
+    A node anchored at a block past its epoch's first slot never sees that
+    epoch's boundary block, so it would IGNORE every vote of the epoch (the
+    target is unknown); a real node anchors at a finalized checkpoint.  And
+    a block across an epoch boundary costs a fresh 10^6 state a ~42 s epoch
+    transition.  So, setup: a copy of the epoch-start state whose
+    ``genesis_time`` is re-based to ``now - (f+2) * SECONDS_PER_SLOT - 2``
+    (the wall clock's slot is then f+2, so a block at f+1 and votes on it
+    are acceptable) and whose ``latest_block_header`` is an empty-body
+    header at slot f, rooted on the SHA-256 kernel; the anchor is the
+    node's own default anchor for such a state (``node.py``'s
+    ``_select_anchor``: slot f, empty body, ``state_root`` that root),
+    which the votes of the epoch then target; the block of slot f+1 signed
+    by ``DutyScheduler.produce_block``; NODE_AGG_COPIES aggregates per
+    committee of slot f+1 on that block, signed on the card by
+    ``_signed_aggregates``.  The node's spec schedules Deneb at mainnet's
+    epoch, so it joins the blob topics.  Then, in one event loop:
+    ``BeaconNode(NodeConfig(...), spec)`` with its device left at its
+    default, the card, and ``start()`` (the device backend, the anchor
+    stored, the store built, the sidecar, the ingest scheduler and the API);
+    a bare port ``Port`` as the sender with the node as its bootnode; the
+    DA expectation of phase 8's six commitments registered on the node's
+    gate (the node registers none from a block body, in either package);
+    the block published over the wire through the node's block lane, a
+    scan that must park it; the six sidecars published, folded on the card
+    by the node's blob lane, the block applied on the card by a scan and
+    stored with its post-state by ``_on_applied``; the aggregates drained
+    directly on the node's store (which builds the target's epoch context
+    cold), then published as ``SignedAggregateAndProof``s through the
+    node's aggregate lane, every verdict ACCEPT; ``GET
+    /eth/v1/beacon/blocks/head/root`` from the node's API == the block's
+    root, ``/debug/lanes`` and ``/debug/slot`` read; ``stop()``, which must
+    raise nothing and put the previous hash backend back.  After it, each
+    aggregate flush's field launches are held equal to a direct drain of
+    its members.  Every step's seconds and launches are printed beside the
+    card's name and power limit.  Returns the phase's field launches by
+    (kernel, lanes) and its SHA-256 launches by nodes (for phase 9; the
+    direct drain left out) and its launches by kernel."""
+    import tempfile
+
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+    from lambda_ethereum_consensus_tpu_torch.compression import compress as snappy_compress
+    from lambda_ethereum_consensus_tpu_torch.da import kzg as K
+    from lambda_ethereum_consensus_tpu_torch.network import Port
+    from lambda_ethereum_consensus_tpu_torch.network.gossip import publish_ssz, topic_name
+    from lambda_ethereum_consensus_tpu_torch.network.port import VERDICT_ACCEPT
+    from lambda_ethereum_consensus_tpu_torch.network.sidecar import _msg_id
+    from lambda_ethereum_consensus_tpu_torch.node import BeaconNode, NodeConfig
+    from lambda_ethereum_consensus_tpu_torch.node import node as node_mod
+    from lambda_ethereum_consensus_tpu_torch.node import pending_blocks as PB
+    from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+    from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
+    from lambda_ethereum_consensus_tpu_torch.ssz import get_hash_backend
+    from lambda_ethereum_consensus_tpu_torch.state_transition import misc
+    from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+    from lambda_ethereum_consensus_tpu_torch.types import (
+        BeaconBlock, BeaconBlockBody, BeaconBlockHeader, BeaconState,
+    )
+    from lambda_ethereum_consensus_tpu_torch.types.validator import (
+        AggregateAndProof, SignedAggregateAndProof,
+    )
+    from lambda_ethereum_consensus_tpu_torch.validator import (
+        DutyScheduler, duties, proposer_index_at_slot,
+    )
+
+    t_phase = time.perf_counter()
+    _reset_peak()
+    out: dict = {}
+    steps: dict = {}
+    fq_hist, sha_hist = Counter(), Counter()
+    # the blob topic rows join the mesh once Deneb is active: the node's spec
+    # schedules it at mainnet's Deneb epoch (the repo's presets leave it
+    # unscheduled), as the JAX package's DA scenario schedules it at 0
+    spec = spec.replace(DENEB_FORK_EPOCH=MAINNET_DENEB_EPOCH)
+    sops.install_device_backend(dev)
+
+    def begin():
+        _zero_fq_launches()
+        sops.sha256_kernel_launches = 0
+        _sync()
+        return time.perf_counter()
+
+    def end(name: str, t0: float, **extra) -> dict:
+        _sync()
+        steps[name] = dict(seconds=time.perf_counter() - t0, fq_launches=_launches(),
+                           sha256_launches=sops.sha256_kernel_launches, **extra)
+        return steps[name]
+
+    def sk_of(v: int) -> int:
+        return start_sks.get(v) or keys[v % REGISTRY_KEYS]
+
+    # ---- setup: the epoch-start state re-based, given an empty-body header
+    # at its own slot, rooted; its anchor block, the block and the
+    # aggregates on it
+    fin = bytes(store.finalized_checkpoint.root)
+    start_state = store.block_states[fin]
+    first = int(start_state.slot)
+    if first % int(spec.SLOTS_PER_EPOCH):
+        raise AssertionError(f"the finalized state's slot {first} is not an epoch's first")
+    slot = first + 1
+    sps = int(spec.SECONDS_PER_SLOT)
+    genesis_time = int(time.time()) - (slot + 1) * sps - 2
+    t0 = begin()
+    anchor_state = start_state.copy(
+        genesis_time=genesis_time,
+        latest_block_header=BeaconBlockHeader(
+            slot=first, proposer_index=0, parent_root=b"\x00" * 32, state_root=b"\x00" * 32,
+            body_root=BeaconBlockBody().hash_tree_root(spec)))
+    anchor_state_root = anchor_state.hash_tree_root(spec)
+    end("setup root", t0)
+    if not steps["setup root"]["sha256_launches"]:
+        raise AssertionError("the re-based state's root (phase 3i) launched no SHA-256 kernel")
+    # the node's own default anchor for such a state (node.py's _select_anchor)
+    anchor_block = BeaconBlock(slot=first, proposer_index=0, parent_root=b"\x00" * 32,
+                               state_root=anchor_state_root, body=BeaconBlockBody())
+    anchor_root = anchor_block.hash_tree_root(spec)
+    proposer = proposer_index_at_slot(BeaconStateMut(anchor_state), slot, spec)
+    t0 = begin()
+    signed, post = DutyScheduler({proposer: sk_of(proposer).to_bytes(32, "big")}, spec,
+                                 device=dev).produce_block(anchor_state, slot)
+    end("produce_block", t0)
+    root = signed.message.hash_tree_root(spec)
+    if bytes(signed.message.parent_root) != anchor_root:
+        raise AssertionError("the block's parent_root is not the re-based anchor's root")
+    t0 = time.perf_counter()
+    post_ws = BeaconStateMut(post)
+    epoch = misc.compute_epoch_at_slot(slot, spec)
+    if duties.attestation_data_from_state(post_ws, slot, 0, root, spec).target.root != anchor_root:
+        raise AssertionError("the votes' target is not the node's anchor")
+    if spec.fork_at_epoch(epoch) != "deneb":
+        raise AssertionError(f"epoch {epoch} is before Deneb: the node would join no blob topic")
+    per_slot, table = _epoch_committees(post_ws, epoch, spec)
+    items = [(duties.attestation_data_from_state(post_ws, slot, i, root, spec), table[(slot, i)],
+              _participation(rng, len(table[(slot, i)])))
+             for i in range(per_slot) for _ in range(NODE_AGG_COPIES)]
+    atts, _ = _signed_aggregates(dev, post_ws, items, sk_of, spec)
+    aggregates = [SignedAggregateAndProof(message=AggregateAndProof(aggregator_index=i,
+                                                                    aggregate=att))
+                  for i, att in enumerate(atts)]
+    out["mint_s"] = time.perf_counter() - t0
+    sidecar = _sidecar_maker(spec, signed, blobs)
+    sidecars = [sidecar(i, commitments[i], proofs[i]) for i in range(len(blobs))]
+    del post_ws, post
+
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="node_", dir=str(ROOT / "chiprun_out"))
+    config = NodeConfig(db_path=os.path.join(tmp, "beacon.wal"), genesis_state=anchor_state,
+                        anchor_block=anchor_block, wire=None, enable_range_sync=False)
+    node = BeaconNode(config, spec)
+    if node.device.type != "cuda":
+        raise AssertionError(f"the node's default device is {node.device}, not the card")
+    blob_flushes: list = []
+    agg_flushes: list = []
+    _flush_recorder(node, "_blob_sidecar_drain", lambda tagged: list(tagged), blob_flushes)
+    _flush_recorder(node, "_attestation_drain",
+                    lambda batch, extract, kind: [extract(m) for m in batch], agg_flushes)
+    boot_split = Counter()
+    block_calls: list = []
+    real_on_block = PB.on_block
+
+    def counted_on_block(*args, **kwargs):
+        _sync()
+        before, sha0, t = _launches(), sops.sha256_kernel_launches, time.perf_counter()
+        try:
+            return real_on_block(*args, **kwargs)
+        finally:
+            _sync()
+            after = _launches()
+            block_calls.append(dict(seconds=time.perf_counter() - t,
+                                    fq_launches={k: after[k] - before.get(k, 0) for k in after},
+                                    sha256_launches=sops.sha256_kernel_launches - sha0))
+
+    applied: list = []
+    api: dict = {}
+    wire: dict = {}
+    direct_hist = Counter()
+    previous_backend = get_hash_backend()
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        sender = None
+        # ---- boot
+        t0 = begin()
+        with _seconds_in([(BeaconState, "hash_tree_root", "anchor root"),
+                          (node_mod, "get_forkchoice_store", "store build"),
+                          (node_mod.StateStore, "store_state", "store write"),
+                          (node_mod.BlockStore, "store_block", "store write"),
+                          (BeaconNode, "_start_network", "sidecar"),
+                          (node_mod.BeaconApiServer, "start", "API")], boot_split):
+            await node.start()
+        end("boot", t0, split=dict(boot_split))
+        try:
+            real_applied = node.pending.on_applied
+
+            def timed_applied(block_root, block):
+                t = time.perf_counter()
+                real_applied(block_root, block)
+                applied.append(dict(root=block_root, seconds=time.perf_counter() - t,
+                                    t_end=time.perf_counter()))
+
+            node.pending.on_applied = timed_applied
+            spy = _spy_verdicts(node.port)
+            digest = node.chain.fork_digest()
+            block_topic = topic_name(digest, "beacon_block")
+            agg_topic = topic_name(digest, "beacon_aggregate_and_proof")
+            blob_topics = {subnet: topic_name(digest, f"blob_sidecar_{subnet}")
+                           for subnet, _ in sidecars}
+            # ---- the sender: a bare port with the node as its bootnode
+            t0 = time.perf_counter()
+            sender = await Port.start(fork_digest=digest,
+                                      bootnodes=[f"127.0.0.1:{node.port.listen_port}"])
+            connected = loop.create_future()
+            sender.on_new_peer = lambda pid, addr: connected.done() or connected.set_result(pid)
+            if await asyncio.wait_for(connected, 30) != node.port.node_id:
+                raise AssertionError("the sender connected to another node")
+            await _announced(sender, node.port,
+                             [block_topic, agg_topic, *blob_topics.values()])
+            wire["sender_s"] = time.perf_counter() - t0
+            # ---- the block over the wire, parked by a scan
+            if node.da.expect(root, commitments, [K.versioned_hash(c) for c in commitments]):
+                raise AssertionError("the block is available before any sidecar")
+            t0 = begin()
+            await publish_ssz(sender, block_topic, signed, spec)
+            await _verdicts_in(spy, 1, node.ingest, "the block")
+            parked = await node.pending.process_once()
+            end("block lane", t0)
+            block_id = _msg_id(block_topic, snappy_compress(signed.encode(spec)))
+            if [v for v, _ in spy.get(block_id, ())] != [VERDICT_ACCEPT]:
+                raise AssertionError(f"the block's verdicts {spy}")
+            if parked or root in node.store.blocks or not node.pending.is_pending(root) or \
+                    node.da.is_available(root):
+                raise AssertionError(f"the scan applied {parked}; available "
+                                     f"{node.da.is_available(root)}")
+            # ---- the six sidecars, folded by the blob lane; the scan applies
+            # all six in flight at once, as a peer relays a block's sidecars:
+            # the blob lane's 50 ms deadline then folds them together
+            # (the pending loop's scan may apply the block before the last
+            # verdict lands: it holds the event loop while it runs)
+            t0 = begin()
+            await asyncio.gather(*(publish_ssz(sender, blob_topics[subnet], sc, spec)
+                                   for subnet, sc in sidecars))
+            await _verdicts_in(spy, 1 + len(sidecars), node.ingest, "the sidecars")
+            end("blob lane", t0)
+            if not node.da.is_available(root):
+                raise AssertionError("the node's DA gate did not open")
+            await node.pending.process_once()
+            for _ in range(6000):
+                if root in node.store.blocks:
+                    break
+                await asyncio.sleep(0.001)
+            wire["folded_s"] = blob_flushes[-1]["t_end"] - t0
+            if root not in node.store.blocks or [a["root"] for a in applied] != [root] or \
+                    len(block_calls) != 1:
+                raise AssertionError(f"the block was not applied once: {len(block_calls)} "
+                                     f"on_block calls, applied {[a['root'].hex() for a in applied]}")
+            # ---- the aggregates: directly on the node's store (which builds
+            # the target's epoch context cold), then through the aggregate lane
+            t0 = begin()
+            with _recording(BP, "_launch", _fq_lanes) as hist:
+                direct = FC.on_attestation_batch(node.store, atts, spec=spec, device=dev)
+            end("direct drain", t0)
+            direct_hist.update(hist)
+            if any(v is not None for v in direct):
+                raise AssertionError("the direct drain rejected valid aggregates")
+            payloads = [snappy_compress(a.encode(spec)) for a in aggregates]
+            ids = [_msg_id(agg_topic, p) for p in payloads]
+            spy.clear()
+            t0 = begin()
+            t_pub = time.perf_counter()
+            for i in range(0, len(payloads), WIRE_BURST):
+                await asyncio.gather(*(sender.publish(agg_topic, p)
+                                       for p in payloads[i:i + WIRE_BURST]))
+            wire["publish_s"] = time.perf_counter() - t_pub
+            await _verdicts_in(spy, len(payloads), node.ingest, "the aggregates")
+            wire["last_verdict_s"] = max(ts for got in spy.values() for _, ts in got) - t_pub
+            end("aggregate lane", t0)
+            if {k: [v for v, _ in got] for k, got in spy.items()} != \
+                    {m: [VERDICT_ACCEPT] for m in ids}:
+                raise AssertionError(f"aggregate verdicts: {len(spy)} of {len(ids)}, not all "
+                                     f"ACCEPT")
+            # ---- the node's own API
+            t0 = time.perf_counter()
+            port = node.api.port
+            for path in ("/eth/v1/beacon/blocks/head/root", "/debug/lanes", "/debug/slot"):
+                api[path] = await loop.run_in_executor(None, _http_json, port, "GET", path)
+            api["seconds"] = time.perf_counter() - t0
+            if api["/eth/v1/beacon/blocks/head/root"]["data"]["root"] != "0x" + root.hex():
+                raise AssertionError(f"the API's head {api['/eth/v1/beacon/blocks/head/root']} "
+                                     f"!= the block's root {root.hex()}")
+        finally:
+            if sender is not None:
+                await sender.close()
+            t0 = time.perf_counter()
+            await node.stop()
+            steps["stop"] = dict(seconds=time.perf_counter() - t0)
+
+    try:
+        with _constant(PB, "on_block", counted_on_block), _path_shapes(fq_hist, sha_hist):
+            asyncio.run(run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the node's path: less the direct drain, which only warmed the context
+    fq_hist.subtract(direct_hist)
+    fq_hist = +fq_hist
+    if get_hash_backend() is not previous_backend:
+        raise AssertionError("stop() did not put the previous hash backend back")
+
+    # ---- per flush: the launches of a direct drain of the same members
+    t0 = time.perf_counter()
+    for f in agg_flushes:
+        _zero_fq_launches()
+        _sync()
+        again = FC.on_attestation_batch(node.store, f["members"], spec=spec, device=dev)
+        _sync()
+        f["direct_launches"] = _launches()
+        if f["fq_launches"] != f["direct_launches"] or \
+                _drain_verdicts(again) != [None] * f["size"]:
+            raise AssertionError(f"a flush of {f['size']}: launches {f['fq_launches']} != a "
+                                 f"direct drain's {f['direct_launches']}")
+    out["flush_check_s"] = time.perf_counter() - t0
+    if sum(f["size"] for f in agg_flushes) != len(aggregates) or \
+            any(v != VERDICT_ACCEPT for f in agg_flushes for v in f["verdicts"]):
+        raise AssertionError("the aggregate lane's flushes do not hold every aggregate, accepted")
+
+    # ---- the launch guard, and what the phase prints
+    block = dict(block_calls[0], store_s=applied[0]["seconds"],
+                 available_to_stored_s=applied[0]["t_end"] - blob_flushes[-1]["t_end"])
+    blob_launches, agg_launches = _sum_launches(blob_flushes), _sum_launches(agg_flushes)
+    if not steps["boot"]["sha256_launches"]:
+        raise AssertionError("the boot (phase 3i) launched no SHA-256 kernel")
+    if not block["sha256_launches"]:
+        raise AssertionError("the block's on_block (phase 3i) launched no SHA-256 kernel")
+    _require_all(blob_launches, "the blob lane (phase 3i)")
+    _require_all(agg_launches, "the aggregate lane (phase 3i)")
+    launches = {name: sum(n for (k, _), n in fq_hist.items() if k == name)
+                for name in FQ_KERNELS}
+    launches["sha256"] = sum(sha_hist.values())
+    peak = _peak_mib()
+    seconds = time.perf_counter() - t_phase
+    split = steps["boot"]["split"]
+    # the anchor's root runs inside the store build
+    other = steps["boot"]["seconds"] - sum(v for k, v in split.items() if k != "anchor root")
+    lanes = api["/debug/lanes"]["data"]
+    slot_view = api["/debug/slot"]["data"]
+    print(f"node: the finalized state of slot {first} ({len(anchor_state.validators)} "
+          f"validators), given an empty-body header at its slot, re-based to genesis_time "
+          f"{genesis_time} (the wall clock's slot {slot + 1}) and rooted "
+          f"in {steps['setup root']['seconds']:.3f} s ({steps['setup root']['sha256_launches']} "
+          f"SHA-256); the block of slot {slot} (proposer {proposer}) produced in "
+          f"{steps['produce_block']['seconds']:.3f} s; {len(aggregates)} aggregates "
+          f"({per_slot} committees x {NODE_AGG_COPIES}) minted on the card in "
+          f"{out['mint_s']:.3f} s [{card}]")
+    print(f"node: BeaconNode on {node.device} booted in {steps['boot']['seconds']:.3f} s: "
+          f"anchor root {split.get('anchor root', 0.0):.3f} s, store build "
+          f"{split.get('store build', 0.0) - split.get('anchor root', 0.0):.3f} s, store write "
+          f"{split.get('store write', 0.0):.3f} s, sidecar {split.get('sidecar', 0.0):.3f} s, "
+          f"API {split.get('API', 0.0):.3f} s, the rest {other:.3f} s; "
+          f"{steps['boot']['sha256_launches']} SHA-256 launches [{card}]")
+    print(f"node: a bare port sender connected and announced in {wire['sender_s']:.3f} s; the "
+          f"block over the wire, its verdict and a scan (parked: available False) "
+          f"{steps['block lane']['seconds']:.3f} s [{card}]")
+    print(f"node: the six sidecars over the wire, publish -> folded {wire['folded_s']:.3f} s: "
+          f"blob lane flushes {[f['size'] for f in blob_flushes]} "
+          f"({sum(f['seconds'] for f in blob_flushes):.3f} s in the drain), "
+          f"{_total(blob_launches)} field launches {blob_launches}; DA complete -> the block "
+          f"applied and stored by a scan {block['available_to_stored_s']:.3f} s: on_block "
+          f"{block['seconds']:.3f} s on the card ({block['sha256_launches']} SHA-256, "
+          f"{_total(block['fq_launches'])} field launches), _on_applied {block['store_s']:.3f} s "
+          f"(block and post-state stored); the scan holds the event loop, so publish -> the "
+          f"sidecars' last verdict {steps['blob lane']['seconds']:.3f} s [{card}]")
+    print(f"node: {len(aggregates)} aggregates directly on the node's store (the epoch context "
+          f"cold) {steps['direct drain']['seconds']:.3f} s, "
+          f"{_total(steps['direct drain']['fq_launches'])} field launches; over the wire in "
+          f"bursts of {WIRE_BURST}: publish "
+          f"{wire['publish_s']:.3f} s, publish -> last verdict {wire['last_verdict_s']:.3f} s, "
+          f"every verdict ACCEPT; {len(agg_flushes)} flushes of "
+          f"{[f['size'] for f in agg_flushes]}, field launches per flush "
+          f"{[_total(f['fq_launches']) for f in agg_flushes]} (each == a direct drain of its "
+          f"members, {out['flush_check_s']:.3f} s), {_total(agg_launches)} in all "
+          f"{agg_launches} [{card}]")
+    print(f"node: GET /eth/v1/beacon/blocks/head/root == the block's root {root.hex()[:16]}; "
+          f"/debug/lanes depth {lanes['depth']}, lanes "
+          f"{[(lane['name'], lane['depth']) for lane in lanes['lanes']]}; /debug/slot "
+          f"{slot_view}; {api['seconds']:.3f} s; stop() {steps['stop']['seconds']:.3f} s, raised "
+          f"nothing, the previous hash backend back [{card}]")
+    print(f"node: the phase's launches {launches}; peak device memory {peak:.0f} MiB; phase "
+          f"{seconds:.1f} s [{card}]")
+    for f in blob_flushes + agg_flushes:
+        f.pop("members")
+    out.update(slot=slot, proposer=proposer, genesis_time=genesis_time, steps=steps,
+               block=block, blob_flushes=blob_flushes, aggregate_flushes=agg_flushes,
+               wire=wire, api={k: v for k, v in api.items() if k != "/debug/lanes"},
+               lanes=lanes, launches=launches, peak_mib=peak, seconds=seconds)
+    record["node_boot"] = out
+    return fq_hist, sha_hist, launches
 
 
 class _MetricCounts:
@@ -4630,10 +5125,12 @@ def path_shape_timings(dev, rng, paths: dict) -> tuple[int, dict]:
                         raise AssertionError(f"{name} kernel != plain version at the {path} "
                                              f"{tag} shape (32, {m}), right operand "
                                              f"{tuple(rhs.shape)}")
-                call_us = _event_ms(lambda: kernel(a, b), reps=200, warmup=5) * 1e3
-                device_us, traced = _device_us(lambda: kernel(a, b), 200, f"fq_{name}")
+                call_us = _event_ms(lambda: kernel(a, b), reps=TIMING_REPS, warmup=5) * 1e3
+                device_us, traced = _device_us(lambda: kernel(a, b), TIMING_REPS,
+                                               f"fq_{name}")
                 geometry = BP._geometry(name, m)
-                bare_us, _ = _device_us(lambda: BP._run("empty", a, b, (32, m), geometry), 200,
+                bare_us, _ = _device_us(lambda: BP._run("empty", a, b, (32, m), geometry),
+                                        TIMING_REPS,
                                         "fq_empty")
                 bound_us = 3 * 128 * m / HBM_BYTES_PER_S * 1e6
                 row[tag] = dict(lanes=m, device_us=device_us, traced=traced, call_us=call_us,
@@ -4717,9 +5214,11 @@ def sha256_path_shapes(dev, hist: Counter, opcodes: Counter, clock_mhz: float,
         if not torch.equal(sops.sha256_nodes(blocks), sops.hash_blocks_torch(blocks)):
             raise AssertionError(f"sha256 kernel != plain version at {label}'s {tag} "
                                  f"({n} nodes)")
-        device_us, _ = _device_us(lambda: sops.sha256_nodes(blocks), 200, "sha256_nodes")
+        device_us, _ = _device_us(lambda: sops.sha256_nodes(blocks), TIMING_REPS,
+                                  "sha256_nodes")
         geometry = (1, 256, -(-n // 256))
-        bare_us, _ = _device_us(lambda: BP._run("empty", zero, zero, (32, n), geometry), 200,
+        bare_us, _ = _device_us(lambda: BP._run("empty", zero, zero, (32, n), geometry),
+                                TIMING_REPS,
                                 "fq_empty")
         byte_us = 96 * n / HBM_BYTES_PER_S * 1e6
         op_us = _op_ms(opcodes, n, clock_mhz) * 1e3
@@ -4734,6 +5233,12 @@ def sha256_path_shapes(dev, hist: Counter, opcodes: Counter, clock_mhz: float,
 
 
 T_START = time.perf_counter()
+PHASE_S: dict = {}  # seconds of each phase of main(), in order
+
+
+def _done(name: str, t0: float) -> None:
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"{name} phase {PHASE_S[name]:.1f} s")
 
 
 def _timed_native_load() -> float:
@@ -4835,7 +5340,10 @@ def main() -> int:
           f"{sum(c for op, c in group_ops.items() if op in _FMA_OPCODES)} integer multiplies, "
           f"{group_ops.get('SHFL', 0)} shuffles; {dict(group_ops.most_common(8))}")
 
+    _done("build and kernel checks", T_START)
+
     # ---- phase 3: the slice — a 1M-validator mainnet state root on the card
+    t_phase = time.perf_counter()
     spec = mainnet_spec()
     keys, key_points, compressed, keys_s = registry_keys(dev, rng)
     print(f"{DISTINCT_KEYS} seeded pubkeys derived on the card by batch_g1_mul in {keys_s:.3f} s")
@@ -4889,12 +5397,14 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     del backend, timed
 
+    _done("state root", t_phase)
+
     # ---- phase 3b: the state transition on the card, at the same state
     record: dict = {"card": card, "build_s": build_s, "native_build_s": native_s,
                     "registry_keys_s": keys_s}
     t0 = time.perf_counter()
     transition = transition_phase(dev, rng, record, state, spec)
-    print(f"state-transition phase {time.perf_counter() - t0:.1f} s")
+    _done("state-transition", t0)
     del state
 
     # ---- phase 3c: the node's slot through fork choice, at the same registry
@@ -4902,7 +5412,7 @@ def main() -> int:
     node_paths, node_routes = node_phase(dev, rng, record, spec, transition["start"],
                                          transition["start_sks"], transition["sync_keys"], keys,
                                          key_points, compressed)
-    print(f"node phase {time.perf_counter() - t0:.1f} s")
+    _done("node", t0)
     del transition["start"], key_points, compressed
 
     # ---- phase 3e: the validator duty engine on phase 3c's store
@@ -4911,32 +5421,32 @@ def main() -> int:
     head_3c = FC.get_head(node_routes["store"], spec)
     t0 = time.perf_counter()
     duty_phase(dev, record, card, spec, node_routes["store"], transition["start_sks"], keys)
-    print(f"duty-engine phase {time.perf_counter() - t0:.1f} s")
+    _done("duty-engine", t0)
 
     # ---- phase 3f: the node's observability on the same store
     t0 = time.perf_counter()
     observability_phase(dev, record, card, spec, node_routes["store"], node_routes["drain"],
                         head_3c, root_polarity)
-    print(f"observability phase {time.perf_counter() - t0:.1f} s")
+    _done("observability", t0)
 
     # ---- phase 3d: the witness plane, at phase 3b's walk-end state
     t0 = time.perf_counter()
     witness_paths, witness_nodes = witness_phase(dev, rng, record, transition.pop("walk_end"),
                                                  transition.pop("walk_root"), spec)
-    print(f"witness phase {time.perf_counter() - t0:.1f} s")
+    _done("witness", t0)
 
     # ---- phase 4: the signature leg — the attestation drain on the card
     t0 = time.perf_counter()
     fq_launches, drain, blame_drain, blame_want = bls_phase(dev, rng, record)
-    print(f"BLS phase {time.perf_counter() - t0:.1f} s")
+    _done("BLS", t0)
 
     # ---- phases 5-8: duty signing, signature sets, scalar multiplication, KZG
     t0 = time.perf_counter()
     duty = sign_phase(dev, rng, record)
-    print(f"duty-signing phase {time.perf_counter() - t0:.1f} s")
+    _done("duty-signing", t0)
     t0 = time.perf_counter()
     sets = sets_phase(dev, rng, record, duty)
-    print(f"signature-set phase {time.perf_counter() - t0:.1f} s")
+    _done("signature-set", t0)
     size_routes_phase(dev, record, card, spec, sets, node_routes, {
         f"the drain of {record['bls']['aggregates']} aggregates (batch_verify_each_cached)": drain,
         "the block import (its set on the device chain; on a fork of the rooted parent, made "
@@ -4949,26 +5459,34 @@ def main() -> int:
     t0 = time.perf_counter()
     setup = kzg_setup(record)
     mul_phase(dev, rng, record, duty, setup)
-    print(f"scalar-multiplication phase {time.perf_counter() - t0:.1f} s")
+    _done("scalar-multiplication", t0)
     t0 = time.perf_counter()
     blobs, commitments, proofs = kzg_phase(dev, rng, record, setup)
-    print(f"KZG phase {time.perf_counter() - t0:.1f} s")
+    _done("KZG", t0)
 
     # ---- phase 3g: the node's ingest path below the wire, on phase 3c's store
     t0 = time.perf_counter()
     ingest_lanes, ingest_nodes = ingest_phase(dev, record, card, spec, ingest_store, ingest_drain,
                                               transition["start_sks"], keys, setup, blobs,
                                               commitments, proofs)
-    print(f"ingest phase {time.perf_counter() - t0:.1f} s")
+    _done("ingest", t0)
 
     # ---- phase 3h: the Beacon API on the card, on phase 3g's store
     t0 = time.perf_counter()
     api_launches = api_phase(dev, record, card, spec, ingest_store)
-    print(f"API phase {time.perf_counter() - t0:.1f} s")
+    _done("API", t0)
+
+    # ---- phase 3i: one beacon node booted on the card, on phase 3g's head
+    t0 = time.perf_counter()
+    node_lanes, node_nodes, node_launches = node_boot_phase(
+        dev, rng, record, card, spec, ingest_store, transition["start_sks"], keys, blobs,
+        commitments, proofs)
+    _done("node-boot", t0)
     del ingest_store, ingest_drain
     blob = blobs[0]
 
     # ---- phase 9: the field kernels at the main paths' lane counts
+    t_phase = time.perf_counter()
     from lambda_ethereum_consensus_tpu_torch.da import kzg as K
     from lambda_ethereum_consensus_tpu_torch.ops import bls_g2 as G2
 
@@ -4980,6 +5498,7 @@ def main() -> int:
         **node_paths,
         **witness_paths,
         "ingest": ingest_lanes,
+        "node": node_lanes,
     }
     path_err, record["path_shapes"] = path_shape_timings(dev, rng, paths)
     mul_err, record["mul_body_sweep"] = body_sweep(
@@ -4997,6 +5516,10 @@ def main() -> int:
                                                          "the witness plane")
     record["sha256_ingest_shapes"] = sha256_path_shapes(dev, ingest_nodes, opcodes, clock_mhz,
                                                         "the ingest path")
+    record["sha256_node_shapes"] = sha256_path_shapes(dev, node_nodes, opcodes, clock_mhz,
+                                                      "the node")
+
+    _done("path shapes and sweeps", t_phase)
 
     # ---- phase 10: per-kernel numbers, then the device line
     big_n = TIMED_SIZES[-1]
@@ -5008,6 +5531,7 @@ def main() -> int:
         "replaces": "lambda_ethereum_consensus_tpu/ops/sha256.py:191",
         "launches": launches[1],
         "api_launches": api_launches,
+        "node_launches": node_launches["sha256"],
         "max_abs_err": max_err,
         "n": big_n,
         "ms": t["kernel_ms"],
@@ -5025,6 +5549,7 @@ def main() -> int:
             "source": "lambda_ethereum_consensus_tpu_torch/csrc/fq.cu",
             "replaces": "lambda_ethereum_consensus_tpu/ops/bigint_pallas.py:" + _REPLACES[name],
             "launches": fq_launches[name],
+            "node_launches": node_launches[name],
             "max_abs_err": fq_err,
             "n": FQ_SIZES[-1],
             "ms": t["kernel_ms"],
@@ -5035,7 +5560,9 @@ def main() -> int:
             "library_ms": None,
         })
     record["kernels"] = kernels
+    record["phase_s"] = PHASE_S
     record["seconds"] = time.perf_counter() - T_START
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}")
     print(f"chip smoke {record['seconds']:.1f} s on {card}")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

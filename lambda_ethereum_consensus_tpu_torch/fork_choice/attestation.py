@@ -39,6 +39,7 @@ __all__ = [
     "get_state_attestation_context",
     "registry_planes",
     "device_plane_store",
+    "state_context_count",
 ]
 
 
@@ -251,6 +252,11 @@ def _evict_oldest_epoch(
         )[1]
         del cache[victim]
         get_metrics().inc("attestation_context_evictions_count", cache=kind)
+
+
+def state_context_count() -> int:
+    """Live state-keyed contexts (the node's per-tick cache-size gauge)."""
+    return len(_STATE_CTX)
 
 
 def get_state_attestation_context(

@@ -13,22 +13,22 @@ independent drains with one scheduler over bounded **priority lanes**
 - :mod:`.lanes` — the bounded FIFO lane: arrival-stamped items, a DRR
   deficit counter, and the two flush triggers (coalesce-target depth or
   per-lane deadline);
-- :mod:`.policy` — the pure decision functions: batch snapping onto
-  shape buckets, shed-victim selection (lowest-priority backlogged lane
-  first), and the sliding-window degraded-mode signal;
+- :mod:`.policy` — the pure decision functions: shed-victim selection
+  (lowest-priority backlogged lane first) and the sliding-window
+  degraded-mode signal;
 - :mod:`.scheduler` — the asyncio drain loop: deficit-weighted service
   in priority order, deadline-based batch coalescing, admission-time
   load shedding, and the per-lane metric families.
 
 The port's copy of the JAX package's ``pipeline`` package.  It differs in
 two ways: a flush is never snapped onto shape buckets (the port has no AOT
-registry), and a ``RuntimeError`` from a source (a kernel, native or CUDA
-fault) ends the drain loop, with no restart, and
+registry, and no ``snap_batch``), and a ``RuntimeError`` from a source (a
+kernel, native or CUDA fault) ends the drain loop, with no restart, and
 :meth:`IngestScheduler.stop` raises it.
 """
 
 from .lanes import Lane, LaneConfig
-from .policy import DegradedSignal, choose_shed_victim, snap_batch
+from .policy import DegradedSignal, choose_shed_victim
 from .scheduler import BATCH_SIZE_BUCKETS, IngestScheduler
 
 __all__ = [
@@ -38,5 +38,4 @@ __all__ = [
     "Lane",
     "LaneConfig",
     "choose_shed_victim",
-    "snap_batch",
 ]

@@ -1,35 +1,17 @@
 """Pure decision functions of the ingest scheduler.
 
 Kept free of asyncio and metrics so every policy choice is unit-testable
-as a function of explicit state: batch-shape snapping, shed-victim
-selection, and the degraded-mode window.
+as a function of explicit state: shed-victim selection and the
+degraded-mode window.
 
-The port's copy of the JAX package's ``pipeline/policy.py``.  The port's
-scheduler never snaps (it keeps no warmed shape buckets);
-:func:`snap_batch` stays as the exported pure function.
+The port's copy of the JAX package's ``pipeline/policy.py``, less its
+``snap_batch``: the port's scheduler never snaps a flush onto shape
+buckets (it keeps no warmed shape buckets).
 """
 
 from __future__ import annotations
 
-__all__ = ["DegradedSignal", "choose_shed_victim", "snap_batch"]
-
-
-def snap_batch(n: int, buckets) -> int:
-    """Snap a flush size onto a warmed shape bucket.
-
-    Returns the largest bucket ``<= n``, or ``n`` unchanged when no
-    bucket fits.  Snapping only ever rounds DOWN: the un-flushed
-    remainder stays queued with its own (newer) arrival stamp, so it
-    drains on the next deadline instead of padding this batch into an
-    unwarmed shape that would compile a new program mid-drain.  A flush
-    smaller than every warmed bucket goes out as-is — deadline flushes
-    must drain even when the warmer targeted bigger shapes.
-    """
-    best = 0
-    for b in buckets:
-        if best < b <= n:
-            best = b
-    return best or n
+__all__ = ["DegradedSignal", "choose_shed_victim"]
 
 
 def choose_shed_victim(lanes_by_priority, incoming):

@@ -42,6 +42,7 @@ from lambda_ethereum_consensus_tpu.crypto import bls as jbls
 from lambda_ethereum_consensus_tpu.fork_choice import forensics as jforensics
 from lambda_ethereum_consensus_tpu.pipeline import IngestScheduler as JaxIngestScheduler
 from lambda_ethereum_consensus_tpu.pipeline import LaneConfig as JaxLaneConfig
+from lambda_ethereum_consensus_tpu.pipeline import scheduler as jsched
 from lambda_ethereum_consensus_tpu.state_transition import accessors as jacc
 from lambda_ethereum_consensus_tpu.state_transition import misc as jmisc
 from lambda_ethereum_consensus_tpu.state_transition.genesis import (
@@ -55,6 +56,7 @@ from lambda_ethereum_consensus_tpu_torch.api import BeaconApiServer, beacon_api,
 from lambda_ethereum_consensus_tpu_torch.config import minimal_spec, use_chain_spec
 from lambda_ethereum_consensus_tpu_torch.fork_choice import forensics as pforensics
 from lambda_ethereum_consensus_tpu_torch.pipeline import IngestScheduler, LaneConfig
+from lambda_ethereum_consensus_tpu_torch.pipeline import scheduler as psched
 from lambda_ethereum_consensus_tpu_torch.types import BeaconState
 from lambda_ethereum_consensus_tpu_torch.witness import coalesce
 from lambda_ethereum_consensus_tpu_torch.witness.multiproof import WitnessProof
@@ -72,6 +74,16 @@ class _FixedClock:
     time = staticmethod(lambda: NOW)
     perf_counter = staticmethod(_time.perf_counter)
     monotonic = staticmethod(_time.monotonic)
+
+
+class _FixedMonotonic:
+    """A stand-in for the ``time`` module of the ingest scheduler: one
+    monotonic instant, so arrival stamps and ``oldest_wait_s`` are the same
+    in every answer; the real wall and performance clocks."""
+
+    time = staticmethod(_time.time)
+    perf_counter = staticmethod(_time.perf_counter)
+    monotonic = staticmethod(lambda: 1000.0)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -537,6 +549,8 @@ def test_debug_node_routes_equal(monkeypatch):
     ``/debug/fleet`` over node stubs, and their 404s without one."""
     for mod in (jbeacon_api, beacon_api):
         monkeypatch.setattr(mod, "time", _FixedClock)
+    for mod in (jsched, psched):
+        monkeypatch.setattr(mod, "time", _FixedMonotonic)
     import asyncio
 
     answers = []

@@ -230,14 +230,6 @@ def test_seeded_submits_agree(fake_time, seed, scale):
 
 # ------------------------------------------------------------------- policy
 
-@pytest.mark.parametrize("n,buckets,want", [
-    (100, (16, 64, 256), 64), (64, (16, 64, 256), 64), (10, (16, 64), 10),
-    (7, (), 7), (1, (1,), 1), (300, (256, 16, 64), 256),
-])
-def test_snap_batch(n, buckets, want):
-    assert ppipe.snap_batch(n, buckets) == jpipe.snap_batch(n, buckets) == want
-
-
 @pytest.mark.parametrize("depths,incoming,want", [
     ((0, 0, 5, 5), 0, 3), ((0, 0, 5, 0), 0, 2), ((3, 0, 0, 0), 2, None),
     ((3, 0, 0, 1), 3, 3), ((0, 2, 0, 0), 1, 1), ((0, 0, 0, 0), 0, None),
