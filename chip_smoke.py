@@ -88,9 +88,9 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    phase's completion offset and deadline misses read from the port's
    registry (printed, not failed); field and SHA-256 launches per phase (none
    of the field kernels for a flush under ``DUTY_SIGN_MIN``, the SHA-256
-   kernel for each proposal); then every flush signed again on the ladder
-   (``DUTY_SIGN_MIN`` at 0, all three field kernels), byte for byte the
-   walk's, 64 of them ``api.sign``;
+   kernel for each proposal); then the first slot's flushes signed again on
+   the ladder (``DUTY_SIGN_MIN`` at 0, all three field kernels), byte for
+   byte the walk's, 64 of all the walk's signatures ``api.sign``;
 3f. the node's observability on the same store: a ``ConsensusForensics``
    plane attached, a forced cold ``get_head`` landing exactly one audit (a
    memo hit none), a depth-0 reorg record from phase 3c's head to phase
@@ -157,8 +157,9 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    invalid verdict); ``/metrics`` parsed (one TYPE line a family,
    ``api_request_seconds`` for every route hit), ``/debug/slo`` printed row
    by row (never failed on a budget), the forensics and trace routes
-   parsed, ``/debug/compile``, ``/debug/profile`` and ``POST
-   /debug/profile/capture`` 501; checkpoint sync of the finalized state
+   parsed, ``/debug/compile`` and ``/debug/profile`` answering with their
+   bodies, ``POST /debug/profile/capture`` without ``seconds`` 400;
+   checkpoint sync of the finalized state
    (``fetch_finalized_state``: encode, transfer, decode timed apart and
    the bytes counted), rooted on the SHA-256 kernel == the finalized
    block's ``state_root``; each step's seconds and launches and the peak
@@ -184,7 +185,16 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    == the block's root, ``/debug/lanes`` and ``/debug/slot`` read;
    ``stop()`` raising nothing and putting the previous hash backend back;
    each step's seconds and launches printed beside the card's name and
-   power limit;
+   power limit; on the same node, the compile and profile plumbing: each
+   kernel body's per-element operation constant (``ops/profile.py``) equal
+   to its SASS count, the warmer started at the phase's drain shapes and
+   joined after the boot (stats and ``warmup_phase_seconds``), the
+   aggregate lane's first flush beside the next, a 2 s ``POST
+   /debug/profile/capture`` during the aggregate lane read for device busy
+   ms and idle share, and ``/debug/profile`` and ``/debug/compile`` after
+   it: the four kernels' launches equal to the wrappers' counters, the
+   device planes plus ``unattributed`` equal to the allocator's total,
+   ``registry_planes`` non-zero;
 4. the signature leg: the attestation drain of ``scripts/bench_chain.py``
    (2 x 127 messages x 16 aggregates = 4,064 aggregates) over a
    524,288-validator registry and its epoch committee cache, through
@@ -284,6 +294,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import functools
 import hashlib
 import json
 import math
@@ -299,6 +310,15 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+# the card's figures PERF.md's bounds divide by, written once in the port
+from lambda_ethereum_consensus_tpu_torch.ops.profile import (
+    DISPATCH_LANES_PER_SM,
+    FMA_LANES_PER_SM,
+    HBM_BYTES_PER_S,
+    INT32_LANES_PER_SM,
+    SMS,
+)
 
 ROOT = Path(__file__).resolve().parent
 SEED = 20261016
@@ -393,9 +413,10 @@ BLAME_DRAIN, BLAME_EVERY = 128, 2
 SIGN_SWEEP, SIGN_PER_MESSAGE = (2048, 1024, 512, 128, 32, 8, 1), 16
 # the duty engine (phase 3e): a scheduler operating validators 0 ..
 # DUTY_KEYS - 1 and the proposers of the DUTY_SLOTS slots after the head,
-# every flush re-signed on the ladder and RESIGN_SAMPLE signatures against
+# the first RESIGN_SLOTS slots' flushes re-signed on the ladder (one slot of
+# two, to hold the smoke's time) and RESIGN_SAMPLE signatures against
 # api.sign
-DUTY_KEYS, DUTY_SLOTS, RESIGN_SAMPLE = 16_384, 2, 64
+DUTY_KEYS, DUTY_SLOTS, RESIGN_SLOTS, RESIGN_SAMPLE = 16_384, 2, 1, 64
 # the node's observability (phase 3f): the first OBS_DRAIN aggregates of phase
 # 3c's drain re-submitted with an item trace each, OBS_CONTAIN of them with
 # one malformed
@@ -416,19 +437,12 @@ API_TRAFFIC_S = 5.0
 # mainnet's epoch (the presets leave it unscheduled)
 NODE_AGG_COPIES = 16
 MAINNET_DENEB_EPOCH = 269_568
+# the node's profiler window during its aggregate lane, seconds
+NODE_CAPTURE_S = 2.0
 # the incremental engine's full-field rebuild, timed at 2^8 .. 2^20 chunks
 # (on an H100 the device backend is faster from about 2^10 chunks up)
 CROSSOVER_LOG2 = tuple(range(8, 21, 2))
 
-# H100 SXM, from the data sheet and the Hopper white paper: HBM3 rate, SMs,
-# INT32 lanes per SM (the ALU pipe) and thread-instructions an SM can issue
-# per clock (4 schedulers x 32 lanes; IMAD issues on the FP32/FMA pipe, so
-# only the ALU-pipe share is held to 64 lanes)
-HBM_BYTES_PER_S = 3.35e12
-SMS = 132
-INT32_LANES_PER_SM = 64
-DISPATCH_LANES_PER_SM = 128
-FMA_LANES_PER_SM = 64
 # SASS opcodes that run only on the INT32 ALU pipe
 _ALU_OPCODES = {
     "IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL", "SHR",
@@ -463,15 +477,21 @@ def _event_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.cache
+def _sass(lib: Path) -> str:
+    """``cuobjdump -sass`` of one library, read once."""
+    from lambda_ethereum_consensus_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    return subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+
+
 def _sass_opcodes(lib: Path, kernel: str) -> Counter:
     """Opcode histogram of ``kernel``'s SASS (NOPs left out).  The kernel is
     straight-line code, so the static count is what one in-range thread
     executes."""
-    from lambda_ethereum_consensus_tpu_torch.ops import _build
-
-    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], check=True, capture_output=True, text=True).stdout
-    sections = re.split(r"^\s*Function : ", sass, flags=re.M)
+    sections = re.split(r"^\s*Function : ", _sass(lib), flags=re.M)
     body = next(s for s in sections[1:] if kernel in s.splitlines()[0])
     ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", body)
     return Counter(op for op in ops if op != "NOP")
@@ -1984,9 +2004,10 @@ def duty_phase(dev, record: dict, card: str, spec, store, start_sks: dict,
     misses are read from the port's registry (a miss is printed, not
     failed); field and SHA-256 launches are counted per phase (no field
     launch for a flush below ``DUTY_SIGN_MIN``, the SHA-256 kernel for each
-    proposal).  Every flush is then signed again on the ladder
-    (``DUTY_SIGN_MIN`` at 0, all three field kernels) and must equal the
-    walk's signatures byte for byte, RESIGN_SAMPLE of them ``api.sign``."""
+    proposal).  The flushes of the first RESIGN_SLOTS slots are then signed
+    again on the ladder (``DUTY_SIGN_MIN`` at 0, all three field kernels) and
+    must equal the walk's signatures byte for byte; RESIGN_SAMPLE of every
+    flush's signatures equal ``api.sign``."""
     from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
     from lambda_ethereum_consensus_tpu_torch.crypto.bls import api
     from lambda_ethereum_consensus_tpu_torch.ops import bls_sign as S
@@ -2146,24 +2167,27 @@ def duty_phase(dev, record: dict, card: str, spec, store, start_sks: dict,
     print(f"slot {slots[1]}'s block carries all {len(published)} aggregates slot {slots[0]} "
           f"published ({len(included)} attestations); the head is slot {slots[-1]}'s block")
 
-    # ---- every flush again on the ladder, byte for byte
+    # ---- the first slots' flushes again on the ladder, byte for byte
+    resigned = [f for f in flushes if f[0] in slots[:RESIGN_SLOTS]]
     with _duty_sign(0):
         again, resign_s, resign_launches = _counted(
-            lambda: [S.sign_batch(k, m, device=dev) for _, _, k, m, _ in flushes],
+            lambda: [S.sign_batch(k, m, device=dev) for _, _, k, m, _ in resigned],
             "the duty flushes re-signed on the ladder")
-    for (slot, phase, _, _, sigs), sigs_again in zip(flushes, again):
+    for (slot, phase, _, _, sigs), sigs_again in zip(resigned, again):
         if sigs_again != sigs:
             raise AssertionError(f"slot {slot} {phase}: the ladder's signatures != the walk's")
     every = [(k, m, sig) for _, _, ks, ms, sigs in flushes for k, m, sig in zip(ks, ms, sigs)]
     pick = np.linspace(0, len(every) - 1, RESIGN_SAMPLE).astype(int).tolist()
     if [api.sign(every[i][0], every[i][1]) for i in pick] != [every[i][2] for i in pick]:
         raise AssertionError("the walk's signatures != api.sign on a sample")
-    print(f"{len(flushes)} flushes ({[len(f[2]) for f in flushes]} signatures) signed again on "
-          f"the ladder (DUTY_SIGN_MIN at 0): {resign_s:.3f} s, {_total(resign_launches)} field "
-          f"launches {resign_launches}; every signature == the walk's, {RESIGN_SAMPLE} == "
-          f"api.sign [{card}]")
+    print(f"{len(resigned)} of {len(flushes)} flushes (slots {slots[:RESIGN_SLOTS]}; "
+          f"{[len(f[2]) for f in resigned]} signatures) signed again on the ladder "
+          f"(DUTY_SIGN_MIN at 0): {resign_s:.3f} s, {_total(resign_launches)} field launches "
+          f"{resign_launches}; every signature == the walk's, {RESIGN_SAMPLE} of all "
+          f"{len(every)} == api.sign [{card}]")
     set_hash_backend(HashlibBackend())
-    out.update(flushes=[(s, ph, len(k)) for s, ph, k, _, _ in flushes], resign_s=resign_s,
+    out.update(flushes=[(s, ph, len(k)) for s, ph, k, _, _ in flushes],
+               resigned=len(resigned), resign_s=resign_s,
                resign_launches=resign_launches, duty_sign_min=S.DUTY_SIGN_MIN,
                seconds=time.perf_counter() - t_phase)
     record["duties"] = out
@@ -3199,7 +3223,8 @@ def api_phase(dev, record: dict, card: str, spec, store) -> int:
     plane; (6) ``run_mixed_traffic`` for API_TRAFFIC_S; (7) ``/metrics``
     parsed (one TYPE line a family, ``api_request_seconds`` for every
     route hit), ``/debug/slo`` printed row by row, the forensics and trace
-    routes parsed, the unported routes 501; (8) checkpoint sync of the
+    routes parsed, ``/debug/compile`` and ``/debug/profile`` 200 with their
+    keys and a capture without ``seconds`` 400; (8) checkpoint sync of the
     finalized state (``fetch_finalized_state``), rooted on the SHA-256
     kernel == the finalized block's ``state_root``.  Every step's seconds
     and launches are printed beside the card's name and power limit; a
@@ -3389,12 +3414,17 @@ def api_phase(dev, record: dict, card: str, spec, store) -> int:
         slo_report = _http_json(port, "GET", "/debug/slo")["data"]
         for route in ("/debug/forkchoice", "/debug/reorgs", "/debug/finality", "/debug/trace"):
             _http_json(port, "GET", route)
-        for method, route in (("GET", "/debug/compile"), ("GET", "/debug/profile"),
-                              ("POST", "/debug/profile/capture")):
-            status = _http(port, method, route, b"{}" if method == "POST" else None,
-                           "application/json" if method == "POST" else "")[0]
-            if status != 501:
-                raise AssertionError(f"{method} {route} answered {status}, not 501")
+        compiled = _http_json(port, "GET", "/debug/compile")["data"]
+        profiled = _http_json(port, "GET", "/debug/profile")["data"]
+        if set(compiled) != {"stats", "warmed_buckets", "executables"} or \
+                not compiled["executables"] or set(profiled) != {
+                    "backend", "peaks", "entries", "planes", "live_device_bytes",
+                    "plane_watermark_bytes", "capture"} or profiled["backend"] != "gpu":
+            raise AssertionError(f"/debug/compile {sorted(compiled)}, /debug/profile "
+                                 f"{sorted(profiled)}")
+        status = _http(port, "POST", "/debug/profile/capture", b"{}", "application/json")[0]
+        if status != 400:
+            raise AssertionError(f"POST /debug/profile/capture without seconds answered {status}")
         end("metrics and debug routes", t0, None, families=len(families),
             metrics_bytes=len(text))
         # ---- (8) checkpoint sync of the finalized state, rooted on the card
@@ -3468,8 +3498,8 @@ def api_phase(dev, record: dict, card: str, spec, store) -> int:
           f"coalesced batch {traffic['coalesce_mean_batch']}, 0 non-200, 0 invalid [{card}]")
     print(f"api: {line('metrics and debug routes')}: /metrics {len(text)} bytes, "
           f"{len(families)} families, one TYPE line each, api_request_seconds for every route "
-          f"hit; /debug/forkchoice, reorgs, finality and trace parsed; /debug/compile, "
-          f"/debug/profile and POST /debug/profile/capture 501 [{card}]")
+          f"hit; /debug/forkchoice, reorgs, finality and trace parsed; /debug/compile and "
+          f"/debug/profile 200, a capture without seconds 400 [{card}]")
     for r in out["slo"]:
         observed = "no data" if r["observed"] is None else f"{r['observed']:.6f} s"
         print(f"  /debug/slo {r['slo']}: observed p{r['slo'].rsplit('_p', 1)[-1]} {observed} "
@@ -3561,6 +3591,73 @@ def _sum_launches(flushes: list) -> dict:
     return {name: total.get(name, 0) for name in FQ_KERNELS}
 
 
+def _op_constants() -> dict:
+    """Each kernel body's SASS instructions per element, counted on the
+    card's build (``cuobjdump -sass``, times the body's threads per
+    element), by ``"kernel/threads"``; raises unless each equals its
+    ``ops/profile.OPS_PER_ELEMENT`` constant."""
+    from lambda_ethereum_consensus_tpu_torch.ops import _build, profile
+
+    libs = _build.build_all()
+    counted = {}
+    for name, bodies in profile.OPS_PER_ELEMENT.items():
+        for group, constant in bodies.items():
+            if name == "sha256":
+                ops = _sass_opcodes(libs["sha256"], "sha256_nodes_kernel")
+            else:
+                ops = _sass_opcodes(libs["fq"], _fq_symbol(name, group))
+            counted[f"{name}/{group}"] = sum(ops.values()) * group
+            if counted[f"{name}/{group}"] != constant:
+                raise AssertionError(f"{name} with {group} threads an element: "
+                                     f"{counted[f'{name}/{group}']} SASS instructions, "
+                                     f"OPS_PER_ELEMENT says {constant}")
+    return counted
+
+
+def _cost_launches(rows: list) -> Counter:
+    """Launches by kernel of ``/debug/compile``'s executables (or
+    ``ops/profile.cost_table()``'s rows)."""
+    out = Counter()
+    for row in rows:
+        out[row["entry"]] += row["launches"]
+    return out
+
+
+def _trace_busy(path: Path) -> dict:
+    """Device busy time of a ``torch.profiler`` Chrome trace: the union of
+    its kernel, memcpy and memset intervals, over the span of every
+    complete event it holds (the capture window); the field and SHA-256
+    kernels' events by name."""
+    doc = json.loads(path.read_text())
+    spans, device, kernels = [], [], Counter()
+    for ev in doc.get("traceEvents", []):
+        if ev.get("ph") != "X" or "dur" not in ev:
+            continue
+        start = float(ev["ts"])
+        span = (start, start + float(ev["dur"]))
+        spans.append(span)
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append(span)
+            name = ev.get("name", "")
+            for kernel in ("fq_mul_mod", "fq_add_mod", "fq_sub_mod", "sha256_nodes"):
+                if kernel in name:
+                    kernels[kernel] += 1
+    if not device:
+        raise AssertionError(f"the capture {path} holds no device event")
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(device):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    window = max(e for _, e in spans) - min(s for s, _ in spans)
+    return dict(events=len(spans), device_events=len(device), kernels=dict(kernels),
+                window_ms=window / 1e3, busy_ms=busy / 1e3, idle_share=1.0 - busy / window)
+
+
 def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: dict,
                     keys: list[int], blobs: list, commitments: list,
                     proofs: list) -> tuple[Counter, Counter, dict]:
@@ -3602,10 +3699,28 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
     raise nothing and put the previous hash backend back.  After it, each
     aggregate flush's field launches are held equal to a direct drain of
     its members.  Every step's seconds and launches are printed beside the
-    card's name and power limit.  Returns the phase's field launches by
+    card's name and power limit.
+
+    The compile and profile plumbing on the same node: each kernel body's
+    per-element operation constant (``ops/profile.OPS_PER_ELEMENT``) held
+    equal to its SASS count; ``NodeConfig.warm_drain_shapes`` set to the
+    phase's drain (the epoch's committees, the committee size, the 1,024
+    aggregates, the slot's 64 messages), the warmer joined after the boot
+    (its stats and each ``warmup_phase_seconds`` printed beside the boot's
+    split); the aggregate lane's first flush beside the one after it; a
+    ``POST /debug/profile/capture`` of ``NODE_CAPTURE_S`` during the
+    aggregate lane, its trace read for device busy ms and idle share; then
+    ``GET /debug/profile`` and ``GET /debug/compile``: the four kernels'
+    launches in ``entries`` and ``executables`` equal to the wrappers'
+    counters over the phase (every count a step zeroes folded in first),
+    the device planes plus ``unattributed`` equal to the allocator total
+    the route read, which lies between ``torch.cuda.memory_allocated()``
+    read before and after it, and ``registry_planes`` non-zero.  Returns the phase's field launches by
     (kernel, lanes) and its SHA-256 launches by nodes (for phase 9; the
     direct drain left out) and its launches by kernel."""
     import tempfile
+
+    import torch
 
     from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
     from lambda_ethereum_consensus_tpu_torch.compression import compress as snappy_compress
@@ -3617,11 +3732,14 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
     from lambda_ethereum_consensus_tpu_torch.node import BeaconNode, NodeConfig
     from lambda_ethereum_consensus_tpu_torch.node import node as node_mod
     from lambda_ethereum_consensus_tpu_torch.node import pending_blocks as PB
+    from lambda_ethereum_consensus_tpu_torch.node.warmup import DrainShapes
     from lambda_ethereum_consensus_tpu_torch.ops import bigint_pallas as BP
+    from lambda_ethereum_consensus_tpu_torch.ops import profile
     from lambda_ethereum_consensus_tpu_torch.ops import sha256 as sops
     from lambda_ethereum_consensus_tpu_torch.ssz import get_hash_backend
     from lambda_ethereum_consensus_tpu_torch.state_transition import misc
     from lambda_ethereum_consensus_tpu_torch.state_transition.mutable import BeaconStateMut
+    from lambda_ethereum_consensus_tpu_torch.telemetry import get_metrics
     from lambda_ethereum_consensus_tpu_torch.types import (
         BeaconBlock, BeaconBlockBody, BeaconBlockHeader, BeaconState,
     )
@@ -3642,8 +3760,20 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
     # unscheduled), as the JAX package's DA scenario schedules it at 0
     spec = spec.replace(DENEB_FORK_EPOCH=MAINNET_DENEB_EPOCH)
     sops.install_device_backend(dev)
+    op_constants = _op_constants()
+    # the cost table's launches over the phase, held against the wrappers'
+    # counters: each step zeroes the counters, so begin() folds them into
+    # ``tally`` first
+    _zero_fq_launches()
+    sops.sha256_kernel_launches = 0
+    base = _cost_launches(profile.cost_table())
+    tally = Counter()
+
+    def counters() -> Counter:
+        return Counter(_launches(), sha256=sops.sha256_kernel_launches)
 
     def begin():
+        tally.update(counters())
         _zero_fq_launches()
         sops.sha256_kernel_launches = 0
         _sync()
@@ -3713,8 +3843,15 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
 
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="node_", dir=str(ROOT / "chiprun_out"))
+    # the warmer at the phase's drain: the epoch's committees, the committee
+    # size (the warmer pads it to a power of two), the aggregates and the
+    # slot's messages
+    shapes = DrainShapes(n_validators=len(anchor_state.validators), n_committees=len(table),
+                         committee=max(len(m) for m in table.values()),
+                         entries=len(aggregates), groups=per_slot)
     config = NodeConfig(db_path=os.path.join(tmp, "beacon.wal"), genesis_state=anchor_state,
-                        anchor_block=anchor_block, wire=None, enable_range_sync=False)
+                        anchor_block=anchor_block, wire=None, enable_range_sync=False,
+                        warm_drain_shapes=shapes)
     node = BeaconNode(config, spec)
     if node.device.type != "cuda":
         raise AssertionError(f"the node's default device is {node.device}, not the card")
@@ -3742,6 +3879,7 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
     applied: list = []
     api: dict = {}
     wire: dict = {}
+    observatory: dict = {}
     direct_hist = Counter()
     previous_backend = get_hash_backend()
 
@@ -3759,6 +3897,18 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
             await node.start()
         end("boot", t0, split=dict(boot_split))
         try:
+            # ---- the warmer, started with the backend, joined here
+            t0 = time.perf_counter()
+            await loop.run_in_executor(None, node._warmer.join, 300)
+            steps["warmer wait"] = dict(seconds=time.perf_counter() - t0)
+            stats = dict(node.warmer_stats)
+            if node._warmer.is_alive() or set(stats) != {
+                    "overlap_s", "transition_s", "witness_s", "duties_s", "kzg_s"}:
+                raise AssertionError(f"the warmer: alive {node._warmer.is_alive()}, stats {stats}")
+            observatory["warmer_stats"] = stats
+            observatory["warmup_phase_seconds"] = {
+                dict(labels)["phase"]: h_sum for labels, _b, _c, h_sum, _n
+                in get_metrics().histogram_series("warmup_phase_seconds")}
             real_applied = node.pending.on_applied
 
             def timed_applied(block_root, block):
@@ -3834,6 +3984,9 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
             payloads = [snappy_compress(a.encode(spec)) for a in aggregates]
             ids = [_msg_id(agg_topic, p) for p in payloads]
             spy.clear()
+            capture = loop.run_in_executor(
+                None, _http_json, node.api.port, "POST", "/debug/profile/capture",
+                json.dumps({"seconds": NODE_CAPTURE_S, "dir": tmp}).encode())
             t0 = begin()
             t_pub = time.perf_counter()
             for i in range(0, len(payloads), WIRE_BURST):
@@ -3843,6 +3996,9 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
             await _verdicts_in(spy, len(payloads), node.ingest, "the aggregates")
             wire["last_verdict_s"] = max(ts for got in spy.values() for _, ts in got) - t_pub
             end("aggregate lane", t0)
+            observatory["capture"] = (await capture)["data"]
+            observatory["trace"] = _trace_busy(Path(observatory["capture"]["dir"]) / "trace.json")
+            shutil.rmtree(observatory["capture"]["dir"])
             if {k: [v for v, _ in got] for k, got in spy.items()} != \
                     {m: [VERDICT_ACCEPT] for m in ids}:
                 raise AssertionError(f"aggregate verdicts: {len(spy)} of {len(ids)}, not all "
@@ -3853,6 +4009,40 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
             for path in ("/eth/v1/beacon/blocks/head/root", "/debug/lanes", "/debug/slot"):
                 api[path] = await loop.run_in_executor(None, _http_json, port, "GET", path)
             api["seconds"] = time.perf_counter() - t0
+            # ---- the observatory: launches, planes, the build table
+            t0 = time.perf_counter()
+            before = torch.cuda.memory_allocated()
+            prof = (await loop.run_in_executor(None, _http_json, port, "GET",
+                                               "/debug/profile"))["data"]
+            after = torch.cuda.memory_allocated()
+            compiled = (await loop.run_in_executor(None, _http_json, port, "GET",
+                                                   "/debug/compile"))["data"]
+            counted = tally + counters()
+            observatory["routes_s"] = time.perf_counter() - t0
+            from_executables = _cost_launches(compiled["executables"])
+            from_entries = Counter({e["entry"]: e["calls"] for e in prof["entries"]})
+            launches_seen = {k: dict(counters=counted[k],
+                                     executables=from_executables[k] - base[k],
+                                     entries=from_entries[k] - base[k])
+                             for k in ("sha256", *FQ_KERNELS)}
+            if any(not v["counters"] or len(set(v.values())) != 1
+                   for v in launches_seen.values()):
+                raise AssertionError(f"cost table against the counters: {launches_seen}")
+            planes = prof["planes"]
+            device_planes = sum(planes[n] for n in profile.device_planes())
+            live = prof["live_device_bytes"]
+            if live is None or not min(before, after) <= live <= max(before, after) or \
+                    device_planes + planes["unattributed"] != live or \
+                    not planes["registry_planes"]:
+                raise AssertionError(f"planes {planes} against the allocator's {live} "
+                                     f"({before}, {after} read around the route)")
+            observatory.update(launches=launches_seen, planes=planes, live_device_bytes=live,
+                               watermark=prof["plane_watermark_bytes"], peaks=prof["peaks"],
+                               entries=[{k: e[k] for k in ("rank", "entry", "calls",
+                                                           "roofline_ratio", "span_family")}
+                                        for e in prof["entries"]],
+                               executables=len(compiled["executables"]),
+                               builds=compiled["stats"]["builds"])
             if api["/eth/v1/beacon/blocks/head/root"]["data"]["root"] != "0x" + root.hex():
                 raise AssertionError(f"the API's head {api['/eth/v1/beacon/blocks/head/root']} "
                                      f"!= the block's root {root.hex()}")
@@ -3952,6 +4142,32 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
           f"{[(lane['name'], lane['depth']) for lane in lanes['lanes']]}; /debug/slot "
           f"{slot_view}; {api['seconds']:.3f} s; stop() {steps['stop']['seconds']:.3f} s, raised "
           f"nothing, the previous hash backend back [{card}]")
+    first, later = agg_flushes[0], agg_flushes[1:2]
+    flush_line = "; ".join(f"{f['size']} aggregates in {f['seconds']:.3f} s, "
+                           f"{_total(f['fq_launches'])} field launches" for f in [first, *later])
+    trace = observatory["trace"]
+    print(f"node: op constants == SASS instructions per element {op_constants} [{card}]")
+    print(f"node: warmer at {shapes.n_committees} committees x {shapes.committee} (padded to "
+          f"{1 << (shapes.committee - 1).bit_length()}), {shapes.entries} entries, {shapes.groups} messages: "
+          f"stats {observatory['warmer_stats']}; warmup_phase_seconds "
+          f"{ {k: round(v, 3) for k, v in observatory['warmup_phase_seconds'].items()} }; "
+          f"joined {steps['warmer wait']['seconds']:.3f} s after the boot's "
+          f"{steps['boot']['seconds']:.3f} s (split "
+          f"{ {k: round(v, 3) for k, v in split.items()} }) [{card}]")
+    print(f"node: the aggregate lane's first flush and the one after it: {flush_line} [{card}]")
+    print(f"node: POST /debug/profile/capture of {NODE_CAPTURE_S:g} s during the aggregate "
+          f"lane: {observatory['capture']['bytes']} bytes in "
+          f"{observatory['capture']['seconds']:.3f} s; {trace['events']} events, "
+          f"{trace['device_events']} on the device {trace['kernels']}; device busy "
+          f"{trace['busy_ms']:.3f} ms of a {trace['window_ms']:.3f} ms window, idle share "
+          f"{trace['idle_share']:.4f} [{card}]")
+    print(f"node: /debug/profile and /debug/compile in {observatory['routes_s']:.3f} s: "
+          f"launches (counters, executables, entries) {observatory['launches']}; device planes "
+          f"+ unattributed == the allocator's {observatory['live_device_bytes']:.0f} bytes: "
+          f"{ {k: int(v) for k, v in observatory['planes'].items()} }, watermark "
+          f"{observatory['watermark']:.0f}; {observatory['executables']} executables; kernels "
+          f"by headroom {[(e['entry'], e['roofline_ratio']) for e in observatory['entries']]}; "
+          f"builds {[(b['name'], b['source']) for b in observatory['builds']]} [{card}]")
     print(f"node: the phase's launches {launches}; peak device memory {peak:.0f} MiB; phase "
           f"{seconds:.1f} s [{card}]")
     for f in blob_flushes + agg_flushes:
@@ -3959,7 +4175,8 @@ def node_boot_phase(dev, rng, record: dict, card: str, spec, store, start_sks: d
     out.update(slot=slot, proposer=proposer, genesis_time=genesis_time, steps=steps,
                block=block, blob_flushes=blob_flushes, aggregate_flushes=agg_flushes,
                wire=wire, api={k: v for k, v in api.items() if k != "/debug/lanes"},
-               lanes=lanes, launches=launches, peak_mib=peak, seconds=seconds)
+               lanes=lanes, launches=launches, peak_mib=peak, seconds=seconds,
+               op_constants=op_constants, observatory=observatory)
     record["node_boot"] = out
     return fq_hist, sha_hist, launches
 
@@ -5447,6 +5664,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sets = sets_phase(dev, rng, record, duty)
     _done("signature-set", t0)
+    t0 = time.perf_counter()
     size_routes_phase(dev, record, card, spec, sets, node_routes, {
         f"the drain of {record['bls']['aggregates']} aggregates (batch_verify_each_cached)": drain,
         "the block import (its set on the device chain; on a fork of the rooted parent, made "
@@ -5454,6 +5672,7 @@ def main() -> int:
                      lambda parent: transition["import_primed"](parent) is not None),
     }, (f"the drain of {BLAME_DRAIN} aggregates, {blame_want.count(False)} forged "
         f"(batch_verify_each_cached)", blame_drain, blame_want), duty["scalars"])
+    _done("size routes", t0)
     ingest_store, ingest_drain = node_routes["store"], node_routes["drain"]
     del sets, node_routes
     t0 = time.perf_counter()

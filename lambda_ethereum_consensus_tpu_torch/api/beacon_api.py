@@ -62,12 +62,14 @@ The port's copy of the JAX package's ``api/beacon_api.py``.  What differs:
   (the JAX package's ``SERVE_CACHE_ENTRIES`` / ``SERVE_CACHE_MB``
   defaults).  The response cache and the verify coalescer are always on:
   ``SERVE_NO_CACHE`` and ``WITNESS_NO_COALESCE`` have no port caller.
-- **Unported planes.** ``GET /debug/compile``, ``GET /debug/profile`` and
-  ``POST /debug/profile/capture`` need the compile cache and the cost
-  observatory (the JAX package's ``ops/aot.py`` and ``ops/profile.py``),
-  which the port does not have yet: they answer ``501 Not Implemented``
-  naming the module.  They stay in the route table, so their
-  ``api_request_seconds`` labels exist.
+- **The compile and profile routes** read the port's own observatory
+  (``ops/profile.py``, ``ops/_build.py``).  ``GET /debug/compile`` lists one
+  executable row per ``(kernel, width)`` launched, with its launches and cost
+  columns, and the build table under ``stats["builds"]``; the port keeps no
+  shape buckets, so ``warmed_buckets`` holds the two founding families,
+  empty.  ``GET /debug/profile`` is ``profile_report()``; ``POST
+  /debug/profile/capture`` runs one ``torch.profiler`` window on the worker
+  thread.
 - ``/debug/slo`` carries no ``device_health`` block: the port keeps no
   device-fault latch, because a device fault raises.
 """
@@ -96,13 +98,6 @@ log = logging.getLogger("beacon_api")
 SERVE_CACHE_ENTRIES = 2048
 #: Most payload bytes the response cache holds (64 MiB).
 SERVE_CACHE_BYTES = 64 << 20
-
-# the JAX package's modules an unported /debug route needs
-_UNPORTED = {
-    "/debug/compile": "ops/aot.py and ops/profile.py",
-    "/debug/profile": "ops/profile.py",
-    "/debug/profile/capture": "ops/profile.py",
-}
 
 
 class BeaconApiServer:
@@ -389,7 +384,6 @@ class BeaconApiServer:
             404: "Not Found",
             405: "Method Not Allowed",
             413: "Payload Too Large",
-            501: "Not Implemented",
         }
         return (
             f"{code} {reasons.get(code, 'Error')}",
@@ -744,25 +738,70 @@ class BeaconApiServer:
             return self._error(404, "no fleet observatory attached")
         return self._json({"data": self.observatory.fleet_view()})
 
-    def _unported(self, route: str) -> tuple[str, str, bytes]:
-        return self._error(
-            501, f"{route} needs the JAX package's {_UNPORTED[route]}, not ported"
-        )
-
     def _debug_compile(self) -> tuple[str, str, bytes]:
-        """The compile/retrace attribution table: not ported (501)."""
-        return self._unported("/debug/compile")
+        """The kernel attribution table: one row per ``(kernel, width)``
+        launched, with its launches, the operations and bytes of one launch
+        and the kernel's roofline ratio, plus the build table of the
+        libraries this process built or reused.  Offloaded route: the table
+        snapshot copies under ``ops/profile._LOCK``."""
+        from ..ops import _build
+        from ..ops import profile as ops_profile
+
+        rows = ops_profile.cost_table()
+        roofline = {e["entry"]: e["roofline_ratio"] for e in ops_profile.entry_report()}
+        for row in rows:
+            row["roofline_ratio"] = roofline.get(row["entry"])
+        builds = _build.build_table()
+        return self._json({
+            "data": {
+                "stats": {
+                    "launches": sum(r["launches"] for r in rows),
+                    "built": sum(b["source"] == "built" for b in builds),
+                    "reused": sum(b["source"] == "reused" for b in builds),
+                    "builds": builds,
+                },
+                # the two founding families stay present, empty: the port
+                # keeps no shape buckets
+                "warmed_buckets": {"attestation_entries": [], "witness_verify": []},
+                "executables": rows,
+            }
+        })
 
     def _debug_profile(self) -> tuple[str, str, bytes]:
-        """The device cost and memory observatory: not ported (501)."""
-        return self._unported("/debug/profile")
+        """The device cost and memory observatory: kernels ranked by
+        roofline headroom, per-plane device-memory accounting with the
+        unattributed remainder and high watermark, the peaks and the
+        capture budget and state."""
+        from ..ops import profile as ops_profile
+
+        return self._json({"data": ops_profile.profile_report()})
 
     def _debug_profile_capture(
         self, body: bytes, ctype: str
     ) -> tuple[str, str, bytes]:
-        """``POST /debug/profile/capture``, a budgeted profiler window:
-        not ported (501)."""
-        return self._unported("/debug/profile/capture")
+        """``POST /debug/profile/capture`` — one budgeted ``torch.profiler``
+        window (body: ``{"seconds": s}``, with an optional ``"dir"``).  Runs
+        on the worker thread (the capture sleeps for the whole window); an
+        over-budget request is refused before tracing and answers 400."""
+        from ..ops import profile as ops_profile
+
+        try:
+            obj = json.loads(body.decode() or "{}")
+        except (UnicodeDecodeError, json.JSONDecodeError) as e:
+            raise ValueError(f"malformed JSON body: {e}") from None
+        if not isinstance(obj, dict):
+            raise ValueError("body must be a JSON object")
+        if "seconds" not in obj:
+            raise ValueError("body must carry 'seconds'")
+        try:
+            seconds = float(obj["seconds"])
+        except (TypeError, ValueError):
+            raise ValueError("'seconds' must be a number") from None
+        out_dir = obj.get("dir")
+        if out_dir is not None and not isinstance(out_dir, str):
+            raise ValueError("'dir' must be a string path")
+        report = ops_profile.capture_trace(seconds, out_dir=out_dir)
+        return self._json({"data": report})
 
     def _debug_slo(self) -> tuple[str, str, bytes]:
         """One READ-ONLY evaluation of the process-wide SLO engine.  The

@@ -11,9 +11,9 @@ The port's counterpart of the JAX package's ``node`` package:
 :mod:`.node` (``BeaconNode``, ``NodeConfig``, ``TopicSpec``), :mod:`.chain`
 (the live chain view req/resp answers from), :mod:`.sync` (range sync),
 :mod:`.replay` (prefetched block decode), :mod:`.pending_blocks` and
-:mod:`.telemetry`; ``python -m lambda_ethereum_consensus_tpu_torch.node``
-boots one node on the card.  The JAX package's ``warmup.py`` (the boot-time
-program warmer) has no port counterpart.
+:mod:`.telemetry` and :mod:`.warmup` (the boot-time warmer);
+``python -m lambda_ethereum_consensus_tpu_torch.node`` boots one node on the
+card.
 """
 
 from .node import BeaconNode, NodeConfig

@@ -28,13 +28,23 @@ The port's copy of the JAX package's ``node/node.py``.  What differs:
   sidecar: the port's ``Port.start`` raises for ``"libp2p"`` and takes no
   ENR ``attnets``/``syncnets`` (``attnet_subnets`` is still validated).
 - **Knobs.** ``GOSSIP_STATS_POLL_S`` is a class constant (the environment
-  is not read).  ``NodeConfig`` has no ``port_wrapper``, no
-  ``warm_drain_shapes`` and no ``ingest_scheduler`` (the node always
-  drains through its ingest scheduler); lanes carry no ``shape_kind``.
-- **Device telemetry.** The tick samples the attestation-context gauges,
-  the flight recorder's gauges and drop counter and the forensics ring
-  drops; the JAX package's live-array, plane-byte, cost-observatory and
-  registry-plane gauges have no port source.
+  is not read).  ``NodeConfig`` has no ``port_wrapper`` and no
+  ``ingest_scheduler`` (the node always drains through its ingest
+  scheduler); lanes carry no ``shape_kind``.
+- **The warmer.** ``NodeConfig.warm_drain_shapes`` starts
+  ``warmup.start_warmer`` on the node's device right after the device
+  backend is installed; ``stop()`` joins it (10 s bound).  A device fault in
+  the warmer counts in ``node_loop_fault_total{loop="warmer"}`` and is
+  raised by ``stop()``, as for the node's loops.
+- **Device telemetry.** The tick samples the JAX package's gauges from the
+  port's sources: ``device_live_arrays`` is the CUDA allocator's count of
+  active blocks and ``device_plane_bytes{plane,sharded}`` resolves
+  ``ops/profile``'s planes against ``torch.cuda.memory_allocated()`` (no
+  ``unattributed`` series and no live-array gauge in a process that has not
+  initialised CUDA; ``sharded`` is always ``"0"``), beside the watermark,
+  the cost table's entry metrics, the registry-plane gauges, the
+  attestation-context gauges, the flight recorder's gauges and drop counter
+  and the forensics ring drops.
 """
 
 from __future__ import annotations
@@ -63,6 +73,8 @@ from ..network.gossip import TopicSubscription, _topic_short, topic_name
 from ..network.peerbook import Peerbook
 from ..network.port import VERDICT_ACCEPT, VERDICT_IGNORE, VERDICT_REJECT
 from ..network.reqresp import BlockDownloader, ReqRespServer
+from ..ops import bls_batch
+from ..ops import profile as ops_profile
 from ..ops.sha256 import install_device_backend, resolve_device
 from ..pipeline import IngestScheduler, LaneConfig
 from ..slo import get_engine
@@ -86,6 +98,7 @@ from .chain import LiveChainView
 from .pending_blocks import PendingBlocks
 from .sync import SyncBlocks
 from .telemetry import Metrics, get_metrics, telemetry_enabled
+from .warmup import DrainShapes, start_warmer
 
 log = logging.getLogger("node")
 
@@ -138,6 +151,10 @@ class NodeConfig:
     # ref: gossipsub.ex:16-34 scaffolds the 64-subnet set).  The bespoke
     # wire advertises no ENR, so no attnets bitfield is written
     attnet_subnets: tuple[int, ...] = (0, 1)
+    # warm the device paths for these drain shapes on a background thread
+    # started with the device backend (node/warmup.py), so the first real
+    # drain finds every kernel and operator loaded
+    warm_drain_shapes: DrainShapes | None = None
     # per-lane flush deadlines: blocks drain near-immediately; the
     # attestation lanes trade up to this much latency for device-sized
     # batches under light load (the shed/deadline regimes are measured
@@ -221,6 +238,9 @@ class BeaconNode:
         self.resume_report: dict = {}
         self.device_backend = None
         self._prev_hash_backend = None
+        # the background warmer (config.warm_drain_shapes) and its stats
+        self._warmer = None
+        self.warmer_stats: dict = {}
         # the device fault that ended one of the node's loops: stop() raises it
         self._fault: BaseException | None = None
         # subnet gossip validation state: committees-per-slot + shuffling
@@ -338,6 +358,12 @@ class BeaconNode:
         self._prev_hash_backend = get_hash_backend()
         self.device_backend = install_device_backend(self.device)
         log.info("device paths ON: SSZ hashing + BLS routed to %s", self.device)
+        if self.config.warm_drain_shapes is not None:
+            self._warmer = start_warmer(
+                self.config.warm_drain_shapes, self.warmer_stats, device=self.device,
+                on_fault=lambda exc: self._fail("warmer", exc),
+            )
+            log.info("drain-program warmer started")
 
     async def _select_anchor(self) -> tuple[BeaconState, BeaconBlock, bytes | None]:
         """DB resume | checkpoint sync | provided genesis
@@ -1337,21 +1363,36 @@ class BeaconNode:
             )
 
     def _sample_device_telemetry(self) -> None:
-        """Per-tick cache gauges: attestation-context
-        cache sizes, flight-recorder vitals and the forensics ring drops.
+        """Per-tick device/cache gauges: the allocator's live blocks and
+        the device-memory planes, the kernels' cost metrics, shared
+        registry-plane residency, attestation-context cache sizes,
+        flight-recorder vitals and the forensics ring drops.
 
-        PROCESS-wide facts (the process-global state-context cache, the
-        recorder) go to the default registry — writes from co-resident
-        nodes are then idempotent and never double-count in cross-target
-        sums; only the store-scoped context gauge is truly per node and
-        lands on ``self.metrics``.  The JAX package's device-array,
-        plane-byte and registry-plane gauges have no port source."""
+        PROCESS-wide facts (device memory, plane stores, the cost table,
+        the process-global state-context cache, the recorder) go to the
+        default registry — writes from co-resident nodes are then
+        idempotent and never double-count in cross-target sums; only the
+        store-scoped context gauge is truly per node and lands on
+        ``self.metrics``."""
         from ..fork_choice import attestation
 
         node_m = self.metrics
         proc_m = get_metrics()
         if not (node_m.enabled or proc_m.enabled):
             return
+        blocks = ops_profile.live_device_blocks()
+        if blocks is not None:
+            proc_m.set_gauge("device_live_arrays", float(blocks))
+        # one series per accounted plane, plus the unattributed remainder
+        # of the allocator's total where this process has one
+        for plane, nbytes in ops_profile.plane_bytes(ops_profile.live_device_bytes()).items():
+            proc_m.set_gauge("device_plane_bytes", float(nbytes), plane=plane, sharded="0")
+        proc_m.set_gauge("device_plane_bytes_watermark", float(ops_profile.plane_watermark()))
+        ops_profile.emit_entry_metrics(proc_m)
+        planes = bls_batch.plane_store_stats()
+        proc_m.set_gauge("registry_plane_stores", float(planes["stores"]))
+        proc_m.set_gauge("registry_plane_resident_bytes", float(planes["resident_bytes"]))
+        proc_m.set_gauge("registry_plane_uploaded_cols", float(planes["uploaded_cols"]))
         # this store's contexts: genuinely per node
         node_m.set_gauge(
             "attestation_context_count",
@@ -1415,6 +1456,12 @@ class BeaconNode:
         one did (the node's own first)."""
         self._stopping = True
         faults: list[BaseException] = []
+        if self._warmer is not None:
+            # the warmer is daemonized and bounded, but a stop() that
+            # returns while it still launches races the hash-backend
+            # restore below: bound the wait off the loop
+            await asyncio.get_running_loop().run_in_executor(None, self._warmer.join, 10.0)
+            self._warmer = None
         if self.device_backend is not None:
             # restore the process-global SSZ hash backend start() swapped
             # in (multi-node-lifecycle processes, tests)

@@ -12,6 +12,11 @@ when a CUDA tensor first needs a kernel (or when a caller asks for
 No PyTorch header is compiled in: a source that includes them takes minutes
 to build, a plain C one seconds.
 
+:func:`build_table` says what this process built or reused, library by
+library, with each kernel's registers and spills from the ``ptxas -v`` log
+of a build (the port's counterpart of the JAX package's AOT attribution
+table): ``/debug/compile`` serves it.
+
 The host libraries are the repo's shared C++ layer under ``native/``, which
 belongs to neither Python package: ``native/bls381/bls381.cpp`` (BLS12-381)
 and ``native/kvstore/kvstore.cpp`` (the ordered key-value engine with its
@@ -27,14 +32,16 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 __all__ = [
     "BUILD_DIR", "HOST_FLAGS", "HOST_SOURCES", "NVCC_FLAGS", "SOURCE_DIR", "build_all",
-    "build_host", "cxx_path", "library", "nvcc_path",
+    "build_host", "build_table", "cxx_path", "library", "nvcc_path",
 ]
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -58,6 +65,49 @@ _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}
 #: ``ptxas -v`` report (registers, spills) of each library built in this process
 build_logs: dict[str, str] = {}
+# name -> what this process did for the library: built (seconds) or reused.
+# Its own lock: library() holds _lock across build_all(), which notes here.
+_builds: dict[str, dict] = {}
+_builds_lock = threading.Lock()
+
+
+def _note(name: str, path: Path, built: bool, seconds: float) -> None:
+    with _builds_lock:
+        _builds[name] = {"name": name, "path": str(path),
+                         "source": "built" if built else "reused",
+                         "seconds": round(seconds, 3)}
+
+
+def _ptxas_kernels(log: str) -> list[dict]:
+    """``[{"function", "registers", "spill_stores", "spill_loads"}]`` for
+    each entry function a ``ptxas -v`` log reports."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            out.append({"function": entry.group(1), "registers": None,
+                        "spill_stores": None, "spill_loads": None})
+            continue
+        if not out:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spills:
+            out[-1]["spill_stores"], out[-1]["spill_loads"] = map(int, spills.groups())
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[-1]["registers"] = int(regs.group(1))
+    return out
+
+
+def build_table() -> list[dict]:
+    """One row per library this process built or reused: its name, path,
+    ``source`` (``"built"`` or ``"reused"``), build seconds, and, for a
+    CUDA library built here, its kernels' registers and spills."""
+    with _builds_lock:
+        rows = [dict(r) for r in _builds.values()]
+    for row in rows:
+        row["kernels"] = _ptxas_kernels(build_logs.get(row["name"], ""))
+    return sorted(rows, key=lambda r: r["name"])
 
 
 def nvcc_path() -> str:
@@ -86,8 +136,10 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
         names = sorted(p.stem for p in SOURCE_DIR.glob("*.cu"))
     targets = {name: _target(name) for name in names}
     pending = {}
+    t0 = time.perf_counter()
     for name, (src, so) in targets.items():
         if so.exists():
+            _note(name, so, False, 0.0)
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
@@ -103,6 +155,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             continue
         os.replace(tmp, so)
+        _note(name, so, True, time.perf_counter() - t0)
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return {name: so for name, (_, so) in targets.items()}
@@ -133,11 +186,14 @@ def build_host(name: str = "bls381") -> Path:
     h.update(" ".join(HOST_FLAGS).encode())
     so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if so.exists():
+        _note(name, so, False, 0.0)
         return so
     BUILD_DIR.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
     with open(BUILD_DIR / f"lib{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if so.exists():  # another process built it while this one waited
+            _note(name, so, False, 0.0)
             return so
         tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         out = subprocess.run([cxx_path(), *HOST_FLAGS, "-o", str(tmp), str(src)],
@@ -148,4 +204,5 @@ def build_host(name: str = "bls381") -> Path:
             raise RuntimeError(f"host build of {src} failed: g++ exited {out.returncode}\n"
                                f"{out.stdout}")
         os.replace(tmp, so)
+    _note(name, so, True, time.perf_counter() - t0)
     return so

@@ -11,8 +11,9 @@ flattened into one batch of ``M`` elements.
 Layers:
 
 - :func:`mul_mod`, :func:`add_mod`, :func:`sub_mod` — the wrappers.  On CUDA
-  tensors each launches its kernel (or raises) and adds one to its entry of
-  :data:`kernel_launches`; on CPU tensors each runs its plain version.  The
+  tensors each launches its kernel (or raises), adds one to its entry of
+  :data:`kernel_launches` and records the launch and its lane count in
+  :mod:`.profile`'s cost table; on CPU tensors each runs its plain version.  The
   launch geometry comes from :func:`_geometry`: ``mul_mod`` runs its group
   body (``MUL_GROUP`` threads per element) below ``MUL_GROUP_THRESHOLD``
   lanes and its one-thread body from there on; ``add_mod`` runs
@@ -48,6 +49,7 @@ import torch
 from ..crypto.bls.fields import P
 from . import _build
 from . import bigint as BI
+from .profile import record_launch
 
 __all__ = [
     "add_mod",
@@ -292,6 +294,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = _run(name, a, b, shape, _geometry(name, m))
     if m:
         kernel_launches[name] += 1
+        record_launch(name, m)
     return out
 
 

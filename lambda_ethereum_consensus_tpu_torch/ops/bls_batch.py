@@ -39,6 +39,7 @@ from .bls_fq12 import get_fq12_plane_ops
 from .bls_g1 import _limbs_batch, _scalar_bits_batch, g1_jacobian_ops
 from .bls_g2 import fq2_limbs_batch, g2_jacobian_ops
 from .bls_pairing import get_pairing_ops
+from .profile import register_plane
 from .rlc import COEFF_BITS
 from .sha256 import resolve_device
 
@@ -504,6 +505,12 @@ def plane_store_stats() -> dict:
         "resident_bytes": sum(s.resident_bytes for s in stores),
         "uploaded_cols": sum(s.uploaded_cols for s in stores),
     }
+
+
+# the shared registry planes are the largest deliberate device residents,
+# so they claim their bytes in the plane registry the node tick emits as
+# device_plane_bytes{plane}
+register_plane("registry_planes", lambda: plane_store_stats()["resident_bytes"])
 
 
 class DeviceCommitteeCache:

@@ -11,6 +11,8 @@ equal group math means equal compressed bytes):
   (:mod:`.bls_g2`) on the card over the batch as it is, chunked past
   :data:`SIGN_CHUNK` signatures; affine on the host through the Fq2 norm
   trick.  Flushes of at least :data:`DUTY_SIGN_MIN` signatures take it.
+  The chunks in flight count in :mod:`.profile`'s ``duty_sign_ladders``
+  plane.
 - **host** (:func:`_sign_points_host`, smaller flushes or ``host=True``):
   the native library's scalar multiplication per signature, or, with the
   native library off, shared-base fixed-window comb tables per distinct
@@ -27,6 +29,7 @@ lane count.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Sequence
 
@@ -38,6 +41,7 @@ from ..crypto.bls.hash_to_curve import DST_POP, hash_to_g2_many
 from ..telemetry import inc, span
 from .bls_g1 import SCALAR_BITS
 from .bls_g2 import g2_affine, g2_ladder
+from .profile import register_plane
 from .sha256 import resolve_device
 
 __all__ = [
@@ -80,6 +84,15 @@ def _sk_scalar(secret_key: bytes) -> int:
 
 # ------------------------------------------------------------ device plane
 
+# Device bytes of the Jacobian planes (X, Y, Z as (32, 2, n) int32, the
+# (n,) infinity flags) of the ladder chunks in flight, from the ladder's
+# start to the end of their affine conversion: the sign path's share of the
+# card's memory (it keeps nothing between flushes).
+_LADDER_BYTES_PER_LANE = 3 * 32 * 2 * 4 + 1
+_in_flight = [0]
+_in_flight_lock = threading.Lock()
+register_plane("duty_sign_ladders", lambda: _in_flight[0])
+
 
 def _sign_points_device(
     points: list, scalars: list, nbits: int = SCALAR_BITS, device=None
@@ -89,8 +102,16 @@ def _sign_points_device(
     dev = resolve_device(device)
     out: list = []
     for at in range(0, len(points), SIGN_CHUNK):
-        jac = g2_ladder(points[at : at + SIGN_CHUNK], scalars[at : at + SIGN_CHUNK], nbits, dev)
-        out.extend(g2_affine(jac))
+        chunk = points[at : at + SIGN_CHUNK]
+        held = len(chunk) * _LADDER_BYTES_PER_LANE
+        with _in_flight_lock:
+            _in_flight[0] += held
+        try:
+            jac = g2_ladder(chunk, scalars[at : at + SIGN_CHUNK], nbits, dev)
+            out.extend(g2_affine(jac))
+        finally:
+            with _in_flight_lock:
+                _in_flight[0] -= held
     return out
 
 

@@ -10,7 +10,8 @@ Layers:
 
 - :func:`sha256_nodes` — the kernel's wrapper.  On a CUDA tensor it launches
   the hand-written kernel of ``csrc/sha256.cu`` (one thread per node) and
-  counts the launch in :data:`sha256_kernel_launches`; on a CPU tensor it runs
+  counts the launch in :data:`sha256_kernel_launches` and, with its node count,
+  in :mod:`.profile`'s cost table; on a CPU tensor it runs
   :func:`hash_blocks_torch`, the same function written as tensor ops.
 - :func:`hash_blocks` — numpy in, numpy out, through the wrapper on a device.
 - :func:`merkle_root_device` — a whole zero-padded subtree reduced on the
@@ -31,6 +32,7 @@ import torch
 
 from ..ssz.hash import hashlib_level, set_hash_backend
 from . import _build
+from .profile import record_launch
 
 __all__ = [
     "hash_blocks",
@@ -184,6 +186,7 @@ def sha256_nodes(blocks: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"sha256 kernel launch failed with CUDA error {rc}")
     sha256_kernel_launches += 1
+    record_launch("sha256", n)
     return out
 
 

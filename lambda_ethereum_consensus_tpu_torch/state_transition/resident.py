@@ -35,19 +35,24 @@ constants below.  A device error raises; it never routes to the host.
 Telemetry, as in the JAX package: ``resident_plane_validators`` after each
 sync, ``resident_plane_sync_elems`` after each epoch on the plane.  Not
 carried over: the shape buckets and pow2 padding (``_pad_pow2``,
-``register_shape_bucket``), donation, the ``aot_jit`` cache, the
-mesh-sharded kernels and the warm-up (with its ``warmup_phase_seconds``).
+``register_shape_bucket``), donation, the ``aot_jit`` cache and the
+mesh-sharded kernels.  The warm-up, :func:`warm_transition_programs`, runs
+each body once on zero columns at the registry's size (the node's warmer
+observes its ``warmup_phase_seconds``).
 """
 
 from __future__ import annotations
 
 import math
 import os
+import time
+import weakref
 
 import numpy as np
 import torch
 
 from ..config import ChainSpec, constants, get_chain_spec
+from ..ops.profile import register_plane
 from ..ops.sha256 import resolve_device
 from ..telemetry import set_gauge
 from .math import integer_squareroot
@@ -62,6 +67,7 @@ __all__ = [
     "resident_enabled",
     "scatter",
     "sweep",
+    "warm_transition_programs",
 ]
 
 # Auto-attach threshold: below this registry size the host sweep is
@@ -165,7 +171,35 @@ def gather(col, idx) -> torch.Tensor:
     return col.index_select(0, idx)
 
 
+def warm_transition_programs(n_validators: int, device=None) -> float:
+    """Run every body once on zero columns of ``n_validators`` on
+    ``device`` (default: the card), so that a cold process's first epoch
+    boundary finds the device's kernels loaded.  Returns the seconds it
+    took."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    zeros = torch.zeros(n_validators, dtype=torch.int64, device=dev)
+    flags = torch.zeros(n_validators, dtype=torch.uint8, device=dev)
+    mask = torch.zeros(n_validators, dtype=torch.bool, device=dev)
+    bal, scores = zeros.clone(), zeros.clone()
+    sums = epoch_sums(zeros, flags, flags, mask, mask, mask)
+    sweep(bal, scores, zeros, flags, mask, mask, mask, (0, 1, 4, 16, 1, 0),
+          torch.zeros((5, 1), dtype=torch.int64, device=dev))
+    moved = hysteresis(bal, zeros, 0, 0, 1)
+    idx = torch.zeros(1, dtype=torch.int64, device=dev)
+    scatter(bal, idx, gather(scores, idx))
+    sums.cpu(), moved.cpu(), bal.cpu()  # the device has run every body
+    return time.perf_counter() - t0
+
+
 # ----------------------------------------------------------------- plane
+
+
+# live planes for the device-memory accounting: weak, because a plane's
+# device columns free with its state lineage and accounting must not pin them
+_LIVE_PLANES: "weakref.WeakSet[ResidentEpochPlane]" = weakref.WeakSet()
+
+register_plane("resident_epoch", lambda: sum(p.device_bytes for p in list(_LIVE_PLANES)))
 
 
 class ResidentEpochPlane:
@@ -204,6 +238,7 @@ class ResidentEpochPlane:
         # mirrors matched last, so sync can narrow its mirror compare to
         # the indices mutated since (mutable.dirty_superset)
         self._stamps: dict = {}
+        _LIVE_PLANES.add(self)
 
     @property
     def device_bytes(self) -> int:

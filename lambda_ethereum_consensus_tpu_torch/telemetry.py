@@ -62,7 +62,9 @@ log = logging.getLogger("telemetry")
 DEFAULT_BUCKETS = tuple(1e-4 * 2.0**i for i in range(21))
 
 # Help strings for the metric inventory (the JAX package's, less the
-# families of its compile cache, profiler and device-memory planes).
+# families of its compile cache and sharded plane; the device-memory and
+# cost-observatory families read the CUDA allocator and the kernels' cost
+# table).
 # Unlisted names fall back to the metric name so exposition always carries
 # a HELP line per family.
 _HELP = {
@@ -94,6 +96,14 @@ _HELP = {
     "fork_choice_head_recompute_seconds": "uncached LMD-GHOST head walk",
     "ssz_hash_tree_root_seconds": "top-level SSZ Merkleization root",
     "sidecar_roundtrip_seconds": "one sidecar command round-trip",
+    "device_live_arrays": "live device allocations (the CUDA caching allocator's active blocks)",
+    "device_plane_bytes": "retained bytes per accounted memory plane (sharded is always 0; unattributed = torch.cuda.memory_allocated() minus the device planes; host planes report outside that arithmetic)",
+    "device_plane_bytes_watermark": "high watermark of total allocated device bytes",
+    "ops_entry_flops_total": "SASS-counted thread-instructions dispatched per CUDA kernel",
+    "ops_entry_bytes_total": "bytes moved per CUDA kernel (inputs read once, outputs written once)",
+    "ops_entry_roofline_ratio": "achieved/peak roofline ratio per kernel (max of compute and memory fractions)",
+    "profile_captures_total": "on-demand torch.profiler capture attempts, by result",
+    "profile_capture_seconds": "wall time of one on-demand profiler capture window",
     "registry_plane_resident_bytes": "device bytes of shared registry planes",
     "registry_plane_uploaded_cols": "registry columns shipped host->device",
     "registry_plane_stores": "live per-chain registry plane stores",

@@ -20,8 +20,7 @@ service pays one isolated build per state (under the planner's lock)
 and keeps consensus state untouched.
 
 The port's copy of the JAX package's ``witness/service.py``.  Left out:
-``register_plane`` (the memory accounting of ``ops/profile``, not
-ported) and ``SERVE_NO_CACHE`` (the proof cache is always on).
+``SERVE_NO_CACHE`` (the proof cache is always on).
 ``backend`` is the hash backend of every planner's engine (``None``: the
 installed one); ``metrics`` is the proof cache's sink (``None``: the
 port's registry, as in the JAX package).
@@ -30,13 +29,27 @@ port's registry, as in the JAX package).
 from __future__ import annotations
 
 import threading
+import weakref
 from collections import OrderedDict
 
+from ..ops.profile import register_plane
 from ..serve_cache import ServeCache
 from ..types.beacon import BeaconState
 from .multiproof import WitnessPlanner, WitnessProof
 
 __all__ = ["WitnessService"]
+
+# live services for the memory accounting: the planners' tree rows are tens
+# of MB per served state.  They are host rows (numpy) and the proof cache,
+# so the plane registers device=False: reported as its own
+# device_plane_bytes series, outside the allocator total's remainder.
+_LIVE_SERVICES: "weakref.WeakSet[WitnessService]" = weakref.WeakSet()
+
+register_plane(
+    "witness_buffers",
+    lambda: sum(s.retained_bytes() for s in list(_LIVE_SERVICES)),
+    device=False,
+)
 
 
 class WitnessService:
@@ -82,6 +95,7 @@ class WitnessService:
             max_bytes=16 << 20,
             metrics=metrics,
         )
+        _LIVE_SERVICES.add(self)
 
     def retained_bytes(self) -> int:
         """Bytes retained by this service: every planner's engine tree

@@ -26,7 +26,7 @@ construction; tests pin verdict equality on valid and corrupted proofs):
 The port's copy of the JAX package's ``witness/verify.py``.  Left out:
 the ``witness_verify`` shape buckets and ``aot_jit`` (the CUDA kernel
 takes any node count, so a plane is exactly as wide as its batch), the
-mesh-sharded plane, ``warm_witness_programs``, and the
+mesh-sharded plane, and the
 ``WITNESS_DEVICE_MIN`` / ``WITNESS_NO_DEVICE`` variables (the size route
 is the constant :data:`DEVICE_MIN`; ``device="cpu"`` asks for the plain
 version).  Without buckets, a batch is cut into planes of at most
@@ -34,6 +34,8 @@ version).  Without buckets, a batch is cut into planes of at most
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -43,7 +45,14 @@ from ..ssz.hash import hashlib_level
 from ..telemetry import get_metrics
 from .multiproof import ProofPlan, WitnessError, WitnessProof, plan_for, verify_host
 
-__all__ = ["DEVICE_MIN", "MAX_PLANE_SLOTS", "MIN_PLANE_BATCH", "split_planes", "verify_batch"]
+__all__ = [
+    "DEVICE_MIN",
+    "MAX_PLANE_SLOTS",
+    "MIN_PLANE_BATCH",
+    "split_planes",
+    "verify_batch",
+    "warm_witness_programs",
+]
 
 #: Below this many live proofs the per-proof oracle answers: a plane's
 #: launches cost more than a handful of hashlib paths.
@@ -269,3 +278,40 @@ def _verify_plane(packed: dict, device) -> np.ndarray:
     got = nodes[bidx[:, 0], root_idx]
     expected = torch.from_numpy(packed["expected"]).to(dev)
     return (got == expected).all(dim=1).cpu().numpy()[: packed["n"]]
+
+
+def warm_witness_programs(device=None) -> float:
+    """One plane of :data:`MIN_PLANE_BATCH` copies of a zero-valued
+    single-index proof on ``device`` (default: the card), so that the first
+    real light-client batch finds the SHA-256 kernel built and loaded.
+    Returns the seconds it took.
+
+    Drives the plane's internals, never :func:`verify_batch`: the serving
+    wrapper records ``witness_verify_seconds`` and
+    ``witness_verified_total``, and a planned warm-up in that histogram
+    would read as a phantom ``witness_verify_p95`` violation on every
+    boot."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    proof = _dummy_proof()
+    plan = plan_for(proof)
+    n = MIN_PLANE_BATCH
+    _verify_plane(_assemble([proof] * n, [b"\x00" * 32] * n, [plan] * n), dev)
+    return time.perf_counter() - t0
+
+
+def _dummy_proof() -> WitnessProof:
+    """A shape-correct single-index proof (``balances[0]``) with zero
+    values: the canonical serving shape, without any state."""
+    from ..types.beacon import BeaconState
+    from .multiproof import _top_depth, helper_gindices, leaf_gindex, witness_fields
+
+    meta = witness_fields()["balances"]
+    g = leaf_gindex(meta, 0, _top_depth(BeaconState))
+    zero = b"\x00" * 32
+    return WitnessProof(
+        state_root=zero,
+        indices=(("balances", 0),),
+        leaves=((g, zero),),
+        siblings=tuple(zero for _ in helper_gindices([g])),
+    )

@@ -13,7 +13,9 @@ stale head, coalesced verifies are demuxed per request), ``/metrics``
 renders without a duplicate ``TYPE`` and with the JAX package's families,
 the ``/debug/*`` routes answer over node stubs as the JAX package's
 ``test_tracing.py`` and ``test_forensics.py`` build them (with a fixed
-clock, payloads equal), the three unported routes answer 501, a device
+clock, payloads equal), ``/debug/compile``, ``/debug/profile`` and
+``POST /debug/profile/capture`` answer the JAX server's status codes and
+top-level keys for the same requests (none answers 501), a device
 error answers 500 and is never retried on the host, and
 ``run_mixed_traffic`` runs with no non-200 answer and no invalid verdict.
 Each test swaps each package's default registry for a fresh one.
@@ -489,17 +491,52 @@ def test_metrics_route_merges_the_node_registry(monkeypatch):
 # ----------------------------------------------------------- debug routes
 
 
-def test_unported_routes_answer_501(servers):
-    papi = servers[3]
-    for method, path, module in (("GET", "/debug/compile", "ops/aot.py"),
-                                 ("GET", "/debug/profile", "ops/profile.py"),
-                                 ("POST", "/debug/profile/capture", "ops/profile.py")):
-        status, ctype, payload = papi._route(method, path, b'{"seconds": 1}', "application/json")
-        assert (status, ctype) == ("501 Not Implemented", "application/json")
-        body = json.loads(payload)
-        assert body["code"] == 501 and module in body["message"]
-        label = path
-        assert telemetry.get_metrics().get_histogram("api_request_seconds", route=label)[3] == 1
+def test_unported_routes_answer_501(servers, monkeypatch, tmp_path):
+    """The compile and profile routes, once 501 in the port: for the same
+    requests the port answers the JAX server's status codes with the same
+    top-level keys in ``data``, and none answers 501.  Both captures run a
+    fake tracer (``tests/unit/test_profile.py``'s) into ``tmp_path``."""
+    from lambda_ethereum_consensus_tpu.ops import profile as jprofile
+
+    from lambda_ethereum_consensus_tpu_torch.ops import profile
+
+    class Tracer:
+        def start_trace(self, path):
+            with open(f"{path}/trace.json", "w") as fh:
+                fh.write("{}")
+
+        def stop_trace(self):
+            pass
+
+    for mod in (jprofile, profile):
+        real = mod.capture_trace
+        monkeypatch.setattr(mod, "capture_trace",
+                            lambda s, out_dir=None, real=real: real(s, out_dir, Tracer()))
+    monkeypatch.delenv("PROFILE_CAPTURE_MAX_S", raising=False)
+    requests = [
+        ("GET", "/debug/compile", b""), ("GET", "/debug/profile", b""),
+        ("POST", "/debug/profile/capture", b'{"seconds": 99}'),
+        ("POST", "/debug/profile/capture", b"{}"),
+        ("POST", "/debug/profile/capture", b"not json"),
+        ("POST", "/debug/profile/capture", b'{"seconds": "soon"}'),
+        ("POST", "/debug/profile/capture", b'{"seconds": 0.01, "dir": 7}'),
+        ("POST", "/debug/profile/capture",
+         json.dumps({"seconds": 0.01, "dir": str(tmp_path)}).encode()),
+    ]
+    for method, path, body in requests:
+        want, got = _both(servers, method, path, body, "application/json")
+        assert got[:2] == want[:2], (path, body, got[2], want[2])
+        assert not got[0].startswith("501")
+        g, w = json.loads(got[2]), json.loads(want[2])
+        assert set(g) == set(w)
+        if "data" in w:
+            assert got[0] == "200 OK" and set(g["data"]) == set(w["data"]), path
+        else:
+            assert g["code"] == w["code"] == 400 and g["message"] == w["message"]
+    assert telemetry.get_metrics().get_histogram(
+        "api_request_seconds", route="/debug/profile/capture")[3] == 6
+    for path in ("/debug/compile", "/debug/profile"):
+        assert telemetry.get_metrics().get_histogram("api_request_seconds", route=path)[3] == 1
 
 
 def test_debug_slo_is_the_ports_engine(servers, _registries):

@@ -36,8 +36,8 @@ The last test drives one chain through both packages on fresh registries
 sample, an attester slashing, a finalized advance, an epoch boundary, one
 KZG verification and one witness ``verify_batch``) and holds the port's
 ``family_names()`` equal to the JAX package's, less the families the port
-does not carry: ``device_fault*`` and the compile-cache, profiler and
-device-memory families (the JAX help strings the port's registry dropped).
+does not carry: ``device_fault*`` and the compile-cache and sharded-plane
+families (the JAX help strings the port's registry dropped).
 The resident plane's gauges, whose JAX counterpart compiles for minutes on
 the CPU, are held against the port's own plane.
 """

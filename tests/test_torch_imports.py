@@ -51,7 +51,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "state_transition.operations", "state_transition.predicates",
         "state_transition.resident", "validator.duties",
         "node", "node.__main__", "node.chain", "node.node", "node.pending_blocks",
-        "node.replay", "node.sync", "node.telemetry", "pipeline", "pipeline.lanes", "pipeline.policy",
+        "node.replay", "node.sync", "node.telemetry", "node.warmup", "ops.profile",
+        "ops._build", "pipeline", "pipeline.lanes", "pipeline.policy",
         "pipeline.scheduler", "store", "store.block_store", "store.kv", "store.state_store",
         "telemetry", "tracing", "utils.env", "validator.harness", "validator.pool",
         "validator.scheduler",

@@ -21,11 +21,14 @@ same chain runs beside it where values are compared side by side.
   snapshot under a pinned clock, ``NodeConfig``'s shared defaults,
   ``parse_args`` and ``prefetched``/``decode_signed_blocks`` (in order and
   with errors) equal the JAX package's.
-- The port's divergences: a device fault (``RuntimeError``) in the tick loop
-  or in range sync ends that loop, counts once in ``node_loop_fault_total``
-  with a ``node_fault`` recorder event and is raised by ``stop()``, where a
-  wire error and any other exception stay contained; ``BeaconNode`` with
-  no card raises and installs nothing.
+- The warmer and the device gauges: ``warm_drain_shapes`` starts the
+  warmer, ``stop()`` joins it, and the tick sets the plane, watermark and
+  registry-plane gauges on the CPU (no ``unattributed`` series there).
+- The port's divergences: a device fault (``RuntimeError``) in the tick loop,
+  in range sync or in the warmer ends that loop, counts once in
+  ``node_loop_fault_total`` with a ``node_fault`` recorder event and is
+  raised by ``stop()``, where a wire error and any other exception stay
+  contained; ``BeaconNode`` with no card raises and installs nothing.
 Tolerance: none — roots, bodies and bytes are exact.
 """
 
@@ -59,7 +62,7 @@ from lambda_ethereum_consensus_tpu_torch.network.gossip import publish_ssz, topi
 from lambda_ethereum_consensus_tpu_torch.node import BeaconNode, NodeConfig
 from lambda_ethereum_consensus_tpu_torch.node import __main__ as pmain
 from lambda_ethereum_consensus_tpu_torch.node import node as node_mod
-from lambda_ethereum_consensus_tpu_torch.node import replay
+from lambda_ethereum_consensus_tpu_torch.node import replay, warmup
 from lambda_ethereum_consensus_tpu_torch.pipeline import scheduler as psched
 from lambda_ethereum_consensus_tpu_torch.ssz.hash import get_hash_backend
 
@@ -389,10 +392,10 @@ def test_ingest_lane_snapshot_equal(tmp_path, monkeypatch):
 
 def test_node_config_shared_defaults():
     """Every field both ``NodeConfig``s have defaults the same, but ``wire``;
-    the port's lacks exactly the three fields with no port caller."""
+    the port's lacks exactly the two fields with no port caller."""
     got = {f.name: f for f in dataclasses.fields(NodeConfig)}
     want = {f.name: f for f in dataclasses.fields(JaxNodeConfig)}
-    assert set(want) - set(got) == {"port_wrapper", "warm_drain_shapes", "ingest_scheduler"}
+    assert set(want) - set(got) == {"port_wrapper", "ingest_scheduler"}
     assert set(got) <= set(want)
     port_cfg, jax_cfg = NodeConfig(), JaxNodeConfig()
     for name in got:
@@ -568,6 +571,83 @@ def test_range_sync_fault_surfaces_from_stop(chain, tmp_path, monkeypatch, fresh
     assert fresh_observers.get("node_loop_fault_total", loop="range_sync") == \
         (1 if surfaced else 0)
     assert len(_fault_events()) == (1 if surfaced else 0)
+
+
+def _drain_shapes():
+    return warmup.DrainShapes(64, 4, 16, 8, 2, coeff_bits=8)
+
+
+def test_node_warms_joins_and_samples_device_gauges(chain, tmp_path, fresh_observers):
+    """``warm_drain_shapes`` starts the warmer on the node's device right
+    after the backend is installed, ``stop()`` joins it, and the tick sets
+    the device gauges: every plane (no ``unattributed`` series and no live
+    blocks without CUDA), the watermark and the registry-plane gauges."""
+    _, genesis, _ = chain
+
+    async def main():
+        node = port_node(NodeConfig(db_path=str(tmp_path / "w.wal"), genesis_state=genesis,
+                                    enable_range_sync=False, warm_drain_shapes=_drain_shapes()))
+        await node.start()
+        warmer = node._warmer
+        assert warmer is not None and warmer.name == "drain-warmer"
+        await asyncio.get_running_loop().run_in_executor(None, warmer.join, 100)
+        assert not warmer.is_alive()
+        for _ in range(40):
+            if fresh_observers.get("registry_plane_stores") or \
+                    "device_plane_bytes" in fresh_observers.family_names():
+                break
+            await asyncio.sleep(0.1)
+        await node.stop()
+        assert node._warmer is None
+        return node.warmer_stats
+
+    with use_chain_spec(minimal_spec()):
+        stats = run(main())
+    assert set(stats) == {"overlap_s", "transition_s", "witness_s", "duties_s", "kzg_s"}
+    text = fresh_observers.render_prometheus(self_scrape=False)
+    for plane in ("registry_planes", "resident_epoch", "witness_buffers", "duty_sign_ladders"):
+        assert f'device_plane_bytes{{plane="{plane}",sharded="0"}}' in text, plane
+    assert 'plane="unattributed"' not in text
+    assert "device_live_arrays" not in fresh_observers.family_names()
+    assert fresh_observers.get("device_plane_bytes_watermark") == 0.0
+    for family in ("device_plane_bytes_watermark", "registry_plane_stores",
+                   "registry_plane_resident_bytes", "registry_plane_uploaded_cols"):
+        assert family in fresh_observers.family_names(), family
+    assert fresh_observers.get_histogram("warmup_phase_seconds", phase="drain")[3] == 1
+
+
+@pytest.mark.parametrize("exc,surfaced", [
+    (_CardLost("card lost while warming"), True), (ValueError("bad shape"), False),
+], ids=["device fault", "other error"])
+def test_warmer_fault_surfaces_from_stop(chain, tmp_path, monkeypatch, fresh_observers,
+                                         exc, surfaced):
+    """A device fault in the warmer lands in ``warmer_stats["error"]``,
+    counts once in ``node_loop_fault_total{loop="warmer"}`` and is raised by
+    ``stop()``; any other exception only lands in the stats."""
+    _, genesis, _ = chain
+
+    def planted(*args, **kwargs):
+        raise exc
+
+    monkeypatch.setattr(warmup, "warm_drain_programs", planted)
+
+    async def main():
+        node = port_node(NodeConfig(db_path=str(tmp_path / "wf.wal"), genesis_state=genesis,
+                                    enable_range_sync=False, warm_drain_shapes=_drain_shapes()))
+        await node.start()
+        if surfaced:
+            with pytest.raises(_CardLost, match="card lost while warming"):
+                await node.stop()
+        else:
+            await node.stop()
+        return node.warmer_stats
+
+    with use_chain_spec(minimal_spec()):
+        stats = run(main())
+    assert stats == {"error": f"{type(exc).__name__}: {exc}"}
+    assert fresh_observers.get("node_loop_fault_total", loop="warmer") == (1 if surfaced else 0)
+    assert _fault_events() == ([{"loop": "warmer", "error": "_CardLost",
+                                 "message": "card lost while warming"}] if surfaced else [])
 
 
 def test_node_without_a_card_raises(monkeypatch):
