@@ -138,7 +138,24 @@ Phases (any mismatch or exception ends the run with a nonzero exit):
    by cause, batch sizes and peak memory printed beside the card's name and
    power limit, with the ``protobuf`` and ``cryptography`` versions and
    whether ``yaml`` imports (``config.load_config_file`` then checked on a
-   devnet overlay);
+   devnet overlay); then the libp2p leg on the same store and scheduler: a
+   receiver and 8 sender ports on the libp2p wire (gossipsub's D), the
+   receiver's ``beacon_aggregate_and_proof`` subscription in the aggregate
+   lane, the muxer a port host negotiates with the receiver's sidecar
+   (yamux), the stored block by range and by root from a sender, byte for
+   byte, and the 64 aggregates of phase 3c's drain after its first 1,024,
+   directly and then 8 from each sender, all published at once: every
+   verdict the host sends the direct drain's, the verdicts the sidecar
+   applied (read by an observer in its mesh, which gets only what the
+   sidecar accepts) counted where they diverge, at least one flush on the
+   device route, the first such flush and every host-route flush launching
+   what a direct drain of its members launches; the start, connect and
+   round-trip seconds, the flushes, each message's arrival -> verdict
+   (p50, max, past the sidecar's 5 s validation timeout), each flush's
+   verdict loop beside this process's event-loop stalls outside the drain
+   bodies (the main thread's stack sampled in them), garbage collections
+   and CPU seconds, and the leg's seconds (``ingest/libp2p`` in ``phase
+   seconds``);
 3h. the Beacon API on phase 3g's store (its head the block's
    1,000,000-validator post-state, its finalized checkpoint phase 3c's
    anchor, phase 3f's forensics plane attached): a ``BeaconApiServer`` on
@@ -279,7 +296,8 @@ the SHA-256 kernel and the three field kernels; phase 3d's planes the
 SHA-256 kernel, its vector commitment the three field kernels; phase 3e's
 proposals the SHA-256 kernel, its re-signed flushes the three field
 kernels; phase 3f's traced and malformed drains the three field kernels;
-phase 3g's blob and aggregate flushes the three field kernels, its scan
+phase 3g's blob and aggregate flushes and its libp2p leg's aggregates the
+three field kernels, its scan
 and resume the SHA-256 kernel; phase 3h's state root, cold witness proof,
 verify planes, mixed traffic and checkpoint sync's root the SHA-256
 kernel, and its repeated GETs none; phase 3i's boot and block the SHA-256
@@ -429,6 +447,14 @@ OBS_DRAIN, OBS_CONTAIN = 1024, 16
 INGEST_BLOCK_MS, INGEST_BLOB_MS, INGEST_ATT_MS, INGEST_MAX_ITEMS = 25, 50, 150, 24576
 INGEST_AGGREGATES = 1024
 WIRE_BURST = 64
+# phase 3g's libp2p leg: LIBP2P_PEERS sender ports (gossipsub's D) dialled
+# into one receiver, each publishing LIBP2P_AGGREGATES / LIBP2P_PEERS of the
+# LIBP2P_AGGREGATES aggregates of phase 3c's drain after its first
+# INGEST_AGGREGATES, all at once
+LIBP2P_PEERS, LIBP2P_AGGREGATES = 8, 64
+# how long the leg's observer waits, after the last verdict, for the messages
+# the receiver's sidecar accepted and forwards
+OBSERVER_WAIT_S = 3.0
 # the Beacon API (phase 3h): run_mixed_traffic's window, seconds (1 GET
 # thread, 8 POST threads of 16 proofs: the harness's MIXED_* constants)
 API_TRAFFIC_S = 5.0
@@ -2429,11 +2455,17 @@ class _LaneSource:
         items = [self.extract(m) for m in batch]
         _sync()
         before = _launches()
-        verdicts = self.body(items)
-        _sync()
+        t0 = time.perf_counter()
+        _IN_BODY[0] = True
+        try:
+            verdicts = self.body(items)
+            _sync()
+        finally:
+            _IN_BODY[0] = False
+        t1 = time.perf_counter()
         after = _launches()
         self.flushes.append(dict(size=len(items), verdicts=verdicts, members=items,
-                                 msg_ids=[m.msg_id for m in batch],
+                                 msg_ids=[m.msg_id for m in batch], body=(t0, t1),
                                  fq_launches={k: after[k] - before[k] for k in after}))
         return [codes[v] for v in verdicts]
 
@@ -2548,26 +2580,41 @@ def _ingest_scheduler():
     return sched
 
 
-async def _wire_pair(digest: bytes, ports: list) -> tuple:
-    """Two port sidecars on loopback under ``digest``, the sender dialling
-    the receiver (each ``Port`` appended to ``ports`` as it starts, for the
-    caller to close): (sender, receiver, seconds)."""
+async def _wire_pair(digest: bytes, ports: list, wire: str | None = None,
+                     senders: int = 1) -> tuple:
+    """A receiver and ``senders`` sender ports on loopback under ``digest``
+    on ``wire`` (None: the bespoke sidecar), each sender dialling the
+    receiver (each ``Port`` appended to ``ports`` as it starts, for the
+    caller to close; the senders start together): (senders, receiver,
+    seconds)."""
     from lambda_ethereum_consensus_tpu_torch.network import Port
 
     seconds = {}
-    for name in ("receiver", "sender"):
-        t0 = time.perf_counter()
-        ports.append(await Port.start(fork_digest=digest))
-        seconds[f"{name}_start_s"] = time.perf_counter() - t0
-    receiver, sender = ports
-    connected = asyncio.get_running_loop().create_future()
-    sender.on_new_peer = lambda pid, addr: connected.done() or connected.set_result(pid)
     t0 = time.perf_counter()
-    await sender.add_peer(f"127.0.0.1:{receiver.listen_port}")
-    if await asyncio.wait_for(connected, 30) != receiver.node_id:
-        raise AssertionError("the sender connected to another node")
+    receiver = await Port.start(fork_digest=digest, wire=wire)
+    ports.append(receiver)
+    seconds["receiver_start_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    started = await asyncio.gather(*(Port.start(fork_digest=digest, wire=wire)
+                                     for _ in range(senders)), return_exceptions=True)
+    ports.extend(p for p in started if not isinstance(p, BaseException))
+    for p in started:
+        if isinstance(p, BaseException):
+            raise p
+    seconds["sender_start_s"] = time.perf_counter() - t0
+    connected = []
+    for sender in started:
+        fut = asyncio.get_running_loop().create_future()
+        sender.on_new_peer = functools.partial(
+            lambda f, pid, addr: f.done() or f.set_result(pid), fut)
+        connected.append(fut)
+    t0 = time.perf_counter()
+    await asyncio.gather(*(s.add_peer(f"127.0.0.1:{receiver.listen_port}") for s in started))
+    if any(pid != receiver.node_id for pid in
+           await asyncio.wait_for(asyncio.gather(*connected), 30)):
+        raise AssertionError("a sender connected to another node")
     seconds["connect_s"] = time.perf_counter() - t0
-    return sender, receiver, seconds
+    return list(started), receiver, seconds
 
 
 async def _announced(sender, receiver, topics: list, limit_s: float = 30.0) -> None:
@@ -2582,6 +2629,336 @@ async def _announced(sender, receiver, topics: list, limit_s: float = 30.0) -> N
         if time.perf_counter() > t_end:
             raise AssertionError(f"the receiver's subscriptions never reached the sender: {stats}")
         await asyncio.sleep(0.01)
+
+
+def _check_flushes(flushes: list, store, spec, dev) -> None:
+    """Each wire flush's field launches equal a direct drain of its members,
+    every member valid (its ``direct_launches`` recorded)."""
+    from lambda_ethereum_consensus_tpu_torch import fork_choice as FC
+
+    for f in flushes:
+        _zero_fq_launches()
+        _sync()
+        again = FC.on_attestation_batch(store, f["members"], spec=spec, device=dev)
+        _sync()
+        f["direct_launches"] = _launches()
+        if f["fq_launches"] != f["direct_launches"] or \
+                _drain_verdicts(again) != [None] * f["size"]:
+            raise AssertionError(f"a flush of {f['size']}: launches {f['fq_launches']} != "
+                                 f"a direct drain's {f['direct_launches']}")
+
+
+def _wire_codes(direct: list) -> list:
+    """The verdict code the host sends the sidecar for each direct-drain
+    result."""
+    from lambda_ethereum_consensus_tpu_torch.network.port import (
+        VERDICT_ACCEPT, VERDICT_IGNORE, VERDICT_REJECT,
+    )
+
+    return [VERDICT_ACCEPT if e is None else
+            (VERDICT_REJECT if getattr(e, "reject", False) else VERDICT_IGNORE) for e in direct]
+
+
+def _check_arrivals(ids: list, direct: list, verdicts: dict, src: _LaneSource, results: list,
+                    what: str) -> None:
+    """Every message of ``ids`` arrived once through ``src``'s flushes and
+    got one verdict, the direct drain's code for its aggregate, and the
+    lane's drain results equal the direct drain's."""
+    index = {msg_id: i for i, msg_id in enumerate(ids)}
+    codes = _wire_codes(direct)
+    arrived = [msg_id for f in src.flushes for msg_id in f["msg_ids"]]
+    if len(index) != len(ids) or sorted(arrived, key=lambda m: index.get(m, -1)) != ids or \
+            verdicts != {m: [codes[index[m]]] for m in ids} or \
+            _drain_verdicts(results) != _drain_verdicts([direct[index[m]] for m in arrived]):
+        raise AssertionError(f"{what}: {len(arrived)} of {len(ids)} arrived, "
+                             f"{len(verdicts)} verdicts, not the direct drain's")
+
+
+async def _negotiated_muxer(port) -> str:
+    """The muxer a port ``Libp2pHost`` in this process negotiates when it
+    dials ``port``'s libp2p sidecar (the sidecars run the same host)."""
+    from lambda_ethereum_consensus_tpu_torch.network.libp2p import Libp2pHost
+
+    probe = Libp2pHost()
+    try:
+        peer = await probe.dial("127.0.0.1", port.listen_port)
+        return type(probe.connections[peer].muxer).__name__
+    finally:
+        await probe.close()
+
+
+def _arrivals(port, topic: str) -> dict:
+    """Records when each message of ``topic`` reaches ``port``'s handler:
+    ``{msg_id: perf_counter}``."""
+    got: dict = {}
+    inner = port.gossip_handlers[topic]
+
+    async def handler(*args):
+        got.setdefault(args[1], time.perf_counter())
+        value = inner(*args)
+        if asyncio.iscoroutine(value):
+            await value
+
+    port.gossip_handlers[topic] = handler
+    return got
+
+
+async def _observer(receiver, topic: str, limit_s: float = 30.0) -> tuple:
+    """A port ``Libp2pHost`` and ``Gossipsub`` in this process, dialled into
+    ``receiver``'s libp2p sidecar and subscribed to ``topic``, recording
+    when each message reaches it (``{msg_id: perf_counter}``) and accepting
+    it: (host, router, record), once the receiver's sidecar holds it in its
+    ``topic`` mesh.  The sidecar forwards a message to its mesh only when
+    its own validator returned ACCEPT, and returns IGNORE for a verdict
+    that came after ``VALIDATION_TIMEOUT_S``, so the record holds what the
+    sidecar applied, not what the host sent."""
+    from lambda_ethereum_consensus_tpu_torch.network.libp2p import Libp2pHost
+    from lambda_ethereum_consensus_tpu_torch.network.libp2p.gossipsub import ACCEPT, Gossipsub
+
+    got: dict = {}
+
+    async def validator(_topic, _data, msg_id, _peer):
+        got.setdefault(msg_id, time.perf_counter())
+        return ACCEPT
+
+    host = Libp2pHost()
+    router = Gossipsub(host, validator=validator)
+    try:
+        router.start()
+        await host.dial("127.0.0.1", receiver.listen_port)
+        await router.subscribe(topic)
+        me, t_end = host.peer_id.bytes.hex(), time.perf_counter() + limit_s
+        while me not in (await receiver.get_gossip_stats())["mesh"].get(topic, ()):
+            if time.perf_counter() > t_end:
+                raise AssertionError(f"the observer never joined the receiver's {topic} mesh")
+            await asyncio.sleep(0.02)
+    except BaseException:
+        await router.stop()
+        await host.close()
+        raise
+    return host, router, got
+
+
+def _cpu_seconds(pid: int | str = "self") -> dict:
+    """User + system CPU seconds of each thread of process ``pid``, by
+    thread id, from ``/proc`` (empty where it cannot be read)."""
+    out = {}
+    tick = os.sysconf("SC_CLK_TCK")
+    try:
+        for tid in os.listdir(f"/proc/{pid}/task"):
+            with open(f"/proc/{pid}/task/{tid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            out[int(tid)] = (int(fields[11]) + int(fields[12])) / tick
+    except OSError:
+        pass
+    return out
+
+
+# set while a _LaneSource runs its drain body (which holds the event loop by
+# design), so that _stalls samples only the other stalls
+_IN_BODY = [False]
+
+
+@contextlib.asynccontextmanager
+async def _stalls(pids: dict, step_s: float = 0.005, floor_s: float = 0.02,
+                  dump_s: float = 0.3, sample_s: float = 0.02):
+    """While the block runs: this event loop's stalls (a ``step_s`` sleep
+    that returned ``floor_s`` or more late: ``(start perf_counter,
+    seconds)``); the main thread's stack, sampled every ``sample_s`` by a
+    thread of its own while the loop has not ticked for ``dump_s`` outside
+    a drain body (``samples``: ``(perf_counter, frames innermost first)``,
+    each stack once), and that thread's waits past 0.1 s (``gil_waits``:
+    it needs the GIL, so a long wait is the GIL held in C code); this
+    process's garbage collections (``(start, seconds, generation)``); and
+    the CPU seconds of this process's threads (by name) and of the
+    processes in ``pids`` (name -> pid)."""
+    import gc
+    import traceback
+
+    rec: dict = dict(stalls=[], gc=[], threads={}, processes={}, samples=[], gil_waits=[])
+    started: list = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            t0 = started.pop()
+            rec["gc"].append((t0, time.perf_counter() - t0, info["generation"]))
+
+    tick = [time.perf_counter()]
+    done = threading.Event()
+    main = threading.main_thread().ident
+
+    def sampler():
+        seen = set()
+        t_last = time.perf_counter()
+        while not done.wait(sample_s):
+            now = time.perf_counter()
+            if now - t_last > 0.1 + sample_s:
+                rec["gil_waits"].append((t_last, now - t_last))
+            t_last = now
+            if now - tick[0] < dump_s or _IN_BODY[0]:
+                continue
+            frame = sys._current_frames().get(main)
+            if frame is None:
+                continue
+            stack = tuple(f"{Path(fs.filename).name}:{fs.lineno} {fs.name}"
+                          for fs in reversed(traceback.extract_stack(frame)))
+            if stack not in seen and len(seen) < 8:
+                seen.add(stack)
+                rec["samples"].append((now, list(stack)))
+
+    async def watch():
+        while True:
+            t0 = tick[0] = time.perf_counter()
+            await asyncio.sleep(step_s)
+            late = time.perf_counter() - t0 - step_s
+            if late >= floor_s:
+                rec["stalls"].append((t0 + step_s, late))
+
+    cpu0 = _cpu_seconds()
+    proc0 = {name: sum(_cpu_seconds(pid).values()) for name, pid in pids.items()}
+    gc.callbacks.append(on_gc)
+    task = asyncio.ensure_future(watch())
+    thread = threading.Thread(target=sampler, name="stall-sampler", daemon=True)
+    thread.start()
+    try:
+        yield rec
+    finally:
+        task.cancel()
+        done.set()
+        thread.join()
+        gc.callbacks.remove(on_gc)
+        names = {t.native_id: t.name for t in threading.enumerate()}
+        for tid, sec in _cpu_seconds().items():
+            used = sec - cpu0.get(tid, 0.0)
+            if used >= 0.01:
+                name = names.get(tid, f"thread {tid}")
+                rec["threads"][name] = rec["threads"].get(name, 0.0) + used
+        rec["processes"] = {name: sum(_cpu_seconds(pid).values()) - proc0[name]
+                            for name, pid in pids.items()}
+
+
+async def _libp2p_leg(sched, src: _LaneSource, store, spec, chain, digest: bytes, topic: str,
+                      aggregates: list, stored: bytes, slot: int, root: bytes, begin, end,
+                      shapes) -> dict:
+    """Phase 3g's libp2p leg on the phase's store and ingest scheduler: a
+    receiver ``Port`` on the libp2p wire, its ``topic`` subscription in the
+    aggregate lane feeding ``src``, and LIBP2P_PEERS sender ports dialled in
+    and announced; the muxer negotiated with the receiver's sidecar; an
+    :func:`_observer` in the receiver's mesh; the stored block by range and
+    by root from a sender's ``ReqRespServer`` over ``chain``, byte for
+    byte; then ``aggregates`` as ``SignedAggregateAndProof``s, each sender
+    publishing its share, all at once, until every message has a verdict
+    and the lane is empty, and the observer has every message the sidecar
+    accepted (a bounded wait).  During the burst, :func:`_stalls` records
+    this event loop's stalls, garbage collections and CPU seconds beside
+    the receiver sidecar's, and the spy each verdict's completion."""
+    from lambda_ethereum_consensus_tpu_torch.compression import compress as snappy_compress
+    from lambda_ethereum_consensus_tpu_torch.network.gossip import TopicSubscription
+    from lambda_ethereum_consensus_tpu_torch.network.libp2p.gossipsub import eth2_msg_id
+    from lambda_ethereum_consensus_tpu_torch.network.peerbook import Peerbook
+    from lambda_ethereum_consensus_tpu_torch.network.port import VERDICT_ACCEPT, VERDICT_IGNORE
+    from lambda_ethereum_consensus_tpu_torch.network.reqresp import (
+        BlockDownloader, ReqRespServer,
+    )
+    from lambda_ethereum_consensus_tpu_torch.types.validator import (
+        AggregateAndProof, SignedAggregateAndProof,
+    )
+
+    leg: dict = {}
+    ports: list = []
+    observer = None
+    t_leg = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        senders, receiver, leg["pair"] = await _wire_pair(digest, ports, wire="libp2p",
+                                                          senders=LIBP2P_PEERS)
+        leg["muxer"] = await _negotiated_muxer(receiver)
+        if leg["muxer"] != "Yamux":
+            raise AssertionError(f"the libp2p sidecar negotiated {leg['muxer']}, not yamux")
+        spy = _spy_verdicts(receiver)
+        sub = TopicSubscription(receiver, topic, src.handle, ssz_type=SignedAggregateAndProof,
+                                spec=spec, scheduler=sched, lane="aggregate")
+        await sub.start()
+        arrivals = _arrivals(receiver, topic)
+        await ReqRespServer(senders[0], chain, spec).register()
+        await asyncio.gather(*(_announced(s, receiver, [topic]) for s in senders))
+        observer = await _observer(receiver, topic)
+        leg["setup_s"] = time.perf_counter() - t0
+        # the stored block over req/resp on the libp2p pair
+        peers = Peerbook()
+        peers.add_peer(senders[0].node_id)
+        downloader = BlockDownloader(receiver, peers, spec)
+        for name, request in (("range", lambda: downloader.request_blocks_by_range(slot, 1)),
+                              ("root", lambda: downloader.request_blocks_by_root([root]))):
+            t0 = time.perf_counter()
+            answer = await request()
+            leg[f"by_{name}_s"] = time.perf_counter() - t0
+            if [b.encode(spec) for b in answer] != [stored]:
+                raise AssertionError(f"libp2p blocks by {name}: {len(answer)} blocks, not the "
+                                     f"stored block")
+        # the aggregates, each sender its share, all published at once
+        payloads = [snappy_compress(SignedAggregateAndProof(message=AggregateAndProof(
+            aggregator_index=i, aggregate=agg)).encode(spec)) for i, agg in enumerate(aggregates)]
+        leg["ids"] = [eth2_msg_id(topic, p) for p in payloads]
+        share = len(payloads) // len(senders)
+        spy.clear()
+        t0 = begin()
+        async with _stalls({"receiver sidecar": receiver._proc.pid}) as probe:
+            t_pub = time.perf_counter()
+            with shapes():
+                await asyncio.gather(*(senders[i // share].publish(topic, p)
+                                       for i, p in enumerate(payloads)))
+                leg["publish_s"] = time.perf_counter() - t_pub
+                await _verdicts_in(spy, len(payloads), sched, "the libp2p aggregates")
+            leg["last_verdict_s"] = max(ts for got in spy.values() for _, ts in got) - t_pub
+        end("libp2p aggregates", t0)
+        # what the sidecar applied: every message it accepted reaches the
+        # observer; a verdict past VALIDATION_TIMEOUT_S never does
+        accepted = sum(got[0][0] == VERDICT_ACCEPT for got in spy.values())
+        t_end = time.perf_counter() + OBSERVER_WAIT_S
+        while len(observer[2]) < accepted and time.perf_counter() < t_end:
+            await asyncio.sleep(0.02)
+        leg["applied"] = {m: VERDICT_ACCEPT if m in observer[2] else VERDICT_IGNORE
+                          for m in leg["ids"]}
+        leg["verdicts"] = {k: [v for v, _ in got] for k, got in spy.items()}
+        leg["waits"] = sorted(spy[m][0][1] - arrivals[m] for m in leg["ids"])
+        # per flush: its verdict loop (first to last verdict done), and where
+        # the host stalled
+        loops = [(min(spy[m][0][1] for m in f["msg_ids"]), max(spy[m][0][1] for m in f["msg_ids"]))
+                 for f in src.flushes]
+        leg["verdict_loops"] = [(a - t_pub, b - a) for a, b in loops]
+        bodies = [f["body"] for f in src.flushes]
+        leg["probe"] = dict(
+            stalls=[(t - t_pub, d) for t, d in probe["stalls"]
+                    if not any(a - 0.01 <= t and t + d <= b + 0.05 for a, b in bodies)],
+            # the main thread's stacks in stalls of 0.3 s or more outside a
+            # drain body, innermost frames first
+            samples=[(t - t_pub, frames[:14]) for t, frames in probe["samples"]],
+            gil_waits=[(t - t_pub, d) for t, d in probe["gil_waits"]],
+            gc=dict(collections=len(probe["gc"]), seconds=sum(d for _, d, _ in probe["gc"]),
+                    max_s=max((d for _, d, _ in probe["gc"]), default=0.0)),
+            threads=dict(sorted(probe["threads"].items(), key=lambda kv: -kv[1])[:6]),
+            processes=probe["processes"])
+        # per flush: which senders its members came from, and how far apart
+        # they arrived
+        sender_of = {m: i // share for i, m in enumerate(leg["ids"])}
+        leg["flush_senders"] = [sorted(sender_of[m] for m in f["msg_ids"]) for f in src.flushes]
+        leg["arrival_spread_s"] = [max(arrivals[m] for m in f["msg_ids"])
+                                   - min(arrivals[m] for m in f["msg_ids"]) for f in src.flushes]
+        leg["stats"] = await receiver.get_gossip_stats()
+        await sub.stop()
+    finally:
+        t0 = time.perf_counter()
+        if observer is not None:
+            await observer[1].stop()
+            await observer[0].close()
+        for port in ports:
+            await port.close()
+        leg["close_s"] = time.perf_counter() - t0
+    leg["seconds"] = time.perf_counter() - t_leg
+    return leg
 
 
 def _spy_verdicts(port) -> dict:
@@ -2746,7 +3123,9 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     its members); then ``barrier()``, close, reopen (the WAL replayed) and
     ``get_latest_verified_state``, which must return the block's root and a
     state whose root on the SHA-256 kernel equals the block's
-    ``state_root`` and the store's.  Every step's seconds and launches are
+    ``state_root`` and the store's.  Between the aggregates and the barrier
+    runs the libp2p leg (:func:`_libp2p_leg`) on the same store and
+    scheduler, held as the bespoke step is.  Every step's seconds and launches are
     printed beside the card's name and power limit, with the wire's times,
     the WAL bytes, the flushes by cause, the batch sizes and the peak device
     memory.  Returns
@@ -2764,9 +3143,7 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
         TopicSubscription, publish_ssz, topic_name,
     )
     from lambda_ethereum_consensus_tpu_torch.network.peerbook import Peerbook
-    from lambda_ethereum_consensus_tpu_torch.network.port import (
-        VERDICT_ACCEPT, VERDICT_IGNORE, VERDICT_REJECT,
-    )
+    from lambda_ethereum_consensus_tpu_torch.network.port import VERDICT_ACCEPT
     from lambda_ethereum_consensus_tpu_torch.network.reqresp import BlockDownloader, ReqRespServer
     from lambda_ethereum_consensus_tpu_torch.network.sidecar import _msg_id
     from lambda_ethereum_consensus_tpu_torch.node import PendingBlocks
@@ -2876,6 +3253,13 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     block_src.extract = lambda m: m.value
     agg_src.extract = lambda m: m.value.message.aggregate
     wire: dict = {}
+    leg_aggs = drain[INGEST_AGGREGATES:INGEST_AGGREGATES + LIBP2P_AGGREGATES]
+    if len(leg_aggs) != LIBP2P_AGGREGATES:
+        raise AssertionError(f"phase 3c's drain holds {len(drain)} aggregates")
+    leg_results: list = []
+    leg_src = _LaneSource(_aggregate_body(store, spec, dev, leg_results),
+                          extract=lambda m: m.value.message.aggregate)
+    leg: dict = {}
 
     async def run():
         sched.start()
@@ -2884,7 +3268,7 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
             # ---- the wire: two port sidecars on loopback, the receiver's
             # subscriptions in the scheduler's block and aggregate lanes
             t0 = time.perf_counter()
-            sender, receiver, wire["pair"] = await _wire_pair(digest, ports)
+            (sender,), receiver, wire["pair"] = await _wire_pair(digest, ports)
             spy = _spy_verdicts(receiver)
             subs = [TopicSubscription(receiver, block_topic, block_src.handle,
                                       ssz_type=SignedBeaconBlock, spec=spec, scheduler=sched,
@@ -2974,6 +3358,14 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
             for s in subs:
                 await s.stop()
             wire["unsubscribe_s"] = time.perf_counter() - t0
+            # ---- the libp2p leg, on the same store and ingest scheduler
+            leg["direct"], leg["direct_s"], leg["direct_launches"] = _counted(
+                lambda: FC.on_attestation_batch(store, leg_aggs, spec=spec, device=dev),
+                "direct drain (phase 3g, libp2p leg)")
+            leg.update(await _libp2p_leg(
+                sched, leg_src, store, spec, LiveChainView(store, blocks_db, spec), digest,
+                agg_topic, leg_aggs, stored, slot, root, begin, end,
+                lambda: _path_shapes(fq_hist, sha_hist)))
             return verdicts
         finally:
             t0 = time.perf_counter()
@@ -2999,32 +3391,36 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
             raise AssertionError("the direct drain rejected valid aggregates")
         # per item: one verdict per message, the direct drain's
         t0 = time.perf_counter()
-        index = {msg_id: i for i, msg_id in enumerate(wire["ids"])}
-        codes = [VERDICT_ACCEPT if e is None else
-                 (VERDICT_REJECT if getattr(e, "reject", False) else VERDICT_IGNORE)
-                 for e in direct]
-        arrived = [msg_id for f in agg_src.flushes for msg_id in f["msg_ids"]]
-        if len(index) != len(sub) or sorted(arrived, key=lambda m: index.get(m, -1)) != wire["ids"] or \
-                wire["verdicts"] != {m: [codes[index[m]]] for m in wire["ids"]} or \
-                _drain_verdicts(results) != _drain_verdicts([direct[index[m]] for m in arrived]):
-            raise AssertionError(f"aggregate wire: {len(arrived)} of {len(sub)} arrived, "
-                                 f"{len(wire['verdicts'])} verdicts, not the direct drain's")
+        _check_arrivals(wire["ids"], direct, wire["verdicts"], agg_src, results, "aggregate wire")
         # per flush: the launches of a direct drain of the same members
-        for f in agg_src.flushes:
-            _zero_fq_launches()
-            _sync()
-            again = FC.on_attestation_batch(store, f["members"], spec=spec, device=dev)
-            _sync()
-            f["direct_launches"] = _launches()
-            if f["fq_launches"] != f["direct_launches"] or \
-                    _drain_verdicts(again) != [None] * f["size"]:
-                raise AssertionError(f"a flush of {f['size']}: launches {f['fq_launches']} != "
-                                     f"a direct drain's {f['direct_launches']}")
+        _check_flushes(agg_src.flushes, store, spec, dev)
         wire["flush_check_s"] = time.perf_counter() - t0
         # the step's own seconds: what the wire added to the phase
         wire["seconds"] = sum(wire[k] for k in (
             "setup_s", "by_range_s", "by_root_s", "encode_s", "flush_check_s", "unsubscribe_s",
             "close_s")) + steps["block wire"]["seconds"] + steps["aggregate wire"]["seconds"]
+        # the libp2p leg: per message the host's verdict the direct drain's
+        # (the sidecar's, read by the observer, counted), a device-route
+        # flush, and the launches of a direct drain of its members for the
+        # first device-route flush and every host-route one
+        t0 = time.perf_counter()
+        if any(v is not None for v in leg["direct"]):
+            raise AssertionError("the libp2p leg's direct drain rejected valid aggregates")
+        _check_arrivals(leg["ids"], leg["direct"], leg["verdicts"], leg_src, leg_results,
+                        "libp2p aggregates")
+        codes = _wire_codes(leg["direct"])
+        leg["diverging"] = sum(leg["applied"][m] != codes[i] for i, m in enumerate(leg["ids"]))
+        leg["device_flushes"] = [i for i, f in enumerate(leg_src.flushes)
+                                 if all(f["fq_launches"].get(k) for k in FQ_KERNELS)]
+        if not leg["device_flushes"]:
+            raise AssertionError(f"no libp2p flush took the device route: sizes "
+                                 f"{[f['size'] for f in leg_src.flushes]}")
+        leg["checked_flushes"] = [i for i in range(len(leg_src.flushes))
+                                  if i == leg["device_flushes"][0] or i not in leg["device_flushes"]]
+        _check_flushes([leg_src.flushes[i] for i in leg["checked_flushes"]], store, spec, dev)
+        leg["flush_check_s"] = time.perf_counter() - t0
+        leg["seconds"] += leg["direct_s"] + leg["flush_check_s"]
+        PHASE_S["ingest/libp2p"] = leg["seconds"]
 
         # ---- durability: barrier, close, reopen, the verified resume
         t0 = begin()
@@ -3076,7 +3472,7 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
 
     # ---- the launch guard, and what the phase prints
     steps["store"]["encode_s"] = steps["store"]["seconds"] - steps["store"]["put_s"]
-    for name in ("blob lane", "aggregate wire"):
+    for name in ("blob lane", "aggregate wire", "libp2p aggregates"):
         _require_all(steps[name]["fq_launches"], f"the {name} (phase 3g)")
     for name in ("scan 2", "resume"):
         if not steps[name]["sha256_launches"]:
@@ -3140,15 +3536,77 @@ def ingest_phase(dev, record: dict, card: str, spec, store, drain: list, start_s
     print(f"wire: step {wire['seconds']:.3f} s (sidecars, subscriptions, the block, the "
           f"requests, the aggregates' encode, wire and per-flush check, unsubscribe "
           f"{wire['unsubscribe_s']:.3f} s, close {wire['close_s']:.3f} s) [{card}]")
+    from lambda_ethereum_consensus_tpu_torch.network.sidecar_libp2p import VALIDATION_TIMEOUT_S
+
+    pair, waits = leg["pair"], leg.pop("waits")
+    leg_flushes = [f["size"] for f in leg_src.flushes]
+    leg_launches = [_total(f["fq_launches"]) for f in leg_src.flushes]
+    leg_total = _total(steps["libp2p aggregates"]["fq_launches"])
+    leg.update(wait_p50_s=waits[len(waits) // 2], wait_max_s=waits[-1],
+               waits_past_timeout=sum(w > VALIDATION_TIMEOUT_S for w in waits),
+               flush_sizes=leg_flushes, flush_launches=[f["fq_launches"] for f in leg_src.flushes])
+    applied = Counter("ACCEPT" if v == VERDICT_ACCEPT else "IGNORE" for v in leg["applied"].values())
+    same = ("every verdict == the direct drain's" if not leg["diverging"] else
+            f"{leg['diverging']} of {len(waits)} verdicts the sidecar applied diverge from "
+            f"the direct drain's")
+    print(f"libp2p: a receiver and {LIBP2P_PEERS} sender ports on loopback, noise on "
+          f"({versions}): receiver started in {pair['receiver_start_s']:.3f} s, the senders "
+          f"together in {pair['sender_start_s']:.3f} s, all connected in "
+          f"{pair['connect_s']:.3f} s; negotiated muxer {leg['muxer']} (a port host dialling "
+          f"the receiver's sidecar); subscribed, served and announced {leg['setup_s']:.3f} s "
+          f"in all [{card}]")
+    print(f"libp2p: the stored block ({len(signed.encode(spec))} bytes) back from a sender's "
+          f"ReqRespServer over libp2p: blocks by range round trip {leg['by_range_s']:.4f} s, "
+          f"by root {leg['by_root_s']:.4f} s, both == the stored block [{card}]")
+    print(f"libp2p: {LIBP2P_AGGREGATES} aggregates (phase 3c's drain after its first "
+          f"{INGEST_AGGREGATES}) directly {leg['direct_s']:.3f} s "
+          f"({_total(leg['direct_launches'])} field launches); over libp2p, "
+          f"{LIBP2P_AGGREGATES // LIBP2P_PEERS} from each sender, all published at once: "
+          f"publish {leg['publish_s']:.3f} s, publish -> last verdict "
+          f"{leg['last_verdict_s']:.3f} s; {len(leg_flushes)} flushes of {leg_flushes}, field "
+          f"launches per flush {leg_launches} ({len(leg['device_flushes'])} on the device "
+          f"route, each launching {list(FQ_KERNELS)}; flushes {leg['checked_flushes']}, the "
+          f"first on the device route and every one on the host route, each == a direct "
+          f"drain of its members, {leg['flush_check_s']:.3f} s), {leg_total} in all "
+          f"{steps['libp2p aggregates']['fq_launches']}; arrival -> verdict p50 "
+          f"{leg['wait_p50_s']:.3f} s, max {leg['wait_max_s']:.3f} s, "
+          f"{leg['waits_past_timeout']} of {len(waits)} past VALIDATION_TIMEOUT_S = "
+          f"{VALIDATION_TIMEOUT_S} s; every verdict the host sent == the direct drain's; "
+          f"the sidecar applied {dict(applied)} (an observer in its mesh gets what it "
+          f"accepts): {same} [{card}]")
+    print(f"libp2p: each flush's senders {leg['flush_senders']}, its arrivals spread over "
+          f"{[round(x, 3) for x in leg['arrival_spread_s']]} s (the lane's deadline "
+          f"{INGEST_ATT_MS} ms) [{card}]")
+    pr = leg["probe"]
+    print(f"libp2p: each flush's verdict loop, first to last verdict done (start after the "
+          f"publish, seconds) {[(round(t, 3), round(d, 3)) for t, d in leg['verdict_loops']]}; "
+          f"this event loop's stalls of 20 ms or more outside the drain bodies (start, "
+          f"seconds) "
+          f"{[(round(t, 3), round(d, 3)) for t, d in pr['stalls']]}; "
+          f"over the burst {pr['gc']['collections']} garbage collections "
+          f"({pr['gc']['seconds']:.3f} s, the longest {pr['gc']['max_s']:.3f} s), CPU seconds "
+          f"by thread "
+          f"{ {k: round(v, 3) for k, v in pr['threads'].items()} }, and of "
+          f"{ {k: round(v, 3) for k, v in pr['processes'].items()} } [{card}]")
+    print(f"libp2p: the stall sampler's waits for the GIL past 0.1 s (start, seconds) "
+          f"{[(round(t, 3), round(d, 3)) for t, d in pr['gil_waits']]} [{card}]")
+    for t, frames in pr["samples"]:
+        print(f"libp2p: the main thread {t:.3f} s after the publish, in a stall of 0.3 s or more "
+              f"outside a drain body, innermost first: {' | '.join(frames)} [{card}]")
+    print(f"libp2p: leg {leg['seconds']:.3f} s (the sidecars, subscription, announce, the "
+          f"requests, the direct drain, the aggregates' wire and per-flush check, close "
+          f"{leg['close_s']:.3f} s) [{card}]")
     print(f"ingest: flushes by cause {flushes}; batch sizes {sizes}; {yaml_note}; peak device "
           f"memory {peak:.0f} MiB; phase {seconds:.1f} s [{card}]")
     wire.update(versions=versions, flush_launches=[f["fq_launches"] for f in agg_src.flushes],
                 stats=wire.pop("gossip_stats"))
     for key in ("ids", "verdicts"):
         wire.pop(key)
+    for key in ("ids", "verdicts", "direct", "applied"):
+        leg.pop(key)
     out.update(slot=slot, proposer=proposer, steps=steps, wal_bytes=wal_bytes, flushes=flushes,
                batch_sizes=sizes, blob_verdicts=blob_verdicts, yaml=yaml_note, peak_mib=peak,
-               wire=wire, seconds=seconds)
+               wire=wire, libp2p=leg, seconds=seconds)
     record["ingest"] = out
     return fq_hist, sha_hist
 

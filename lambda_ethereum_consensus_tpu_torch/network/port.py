@@ -12,10 +12,11 @@ libp2p_port.ex:232-234).
 Changes from the JAX package: the sidecar spawned is this package's
 (``python -m lambda_ethereum_consensus_tpu_torch.network.sidecar``, which
 imports no ``torch``); ``PORT_RETRY_MAX`` is a module constant, read at each
-command, not an environment variable; and ``wire="libp2p"`` raises
-``NotImplementedError`` until the libp2p sidecar is ported, so the libp2p
-wire's ``attnets``/``syncnets`` arguments and its ENR are not ported.  The sidecar
-always runs noise: without ``cryptography`` its ``init`` fails and
+command, not an environment variable; and ``wire="libp2p"`` starts the
+port's libp2p sidecar with discovery off, so :attr:`Port.enr` stays ``None``
+and the ``attnets``/``syncnets`` arguments, which only discovery's ENR
+carries, are not ported (ROADMAP.md Queue 1 item 4b).  The sidecar always
+runs noise: without ``cryptography`` its ``init`` fails and
 :meth:`Port.start` raises :class:`PortError`.  ``PortError`` derives from
 ``faults.WireError``: still a ``RuntimeError``, never a device fault.
 """
@@ -77,6 +78,8 @@ class Port:
         self._reader_task: asyncio.Task | None = None
         self.listen_port: int | None = None
         self.node_id: bytes | None = None
+        # libp2p wire: the signed discv5 ENR; None while discovery is off
+        self.enr: str | None = None
         # handler registries
         self.gossip_handlers: dict[str, Handler] = {}
         self.request_handlers: dict[str, Handler] = {}
@@ -153,17 +156,16 @@ class Port:
         key_file: str | None = None,
         wire: str | None = None,
     ) -> "Port":
-        if wire == "libp2p":
-            raise NotImplementedError(
-                "the libp2p wire is not ported yet (ROADMAP.md Queue 1 item 4); "
-                "wire=None runs the bespoke-frame sidecar"
-            )
         self = cls()
         env = dict(os.environ)
         if key_file:
             # persistent noise identity: without it, a restart rotates the
             # static key and a graylisted peer sheds its ban (ADVICE r2)
             env.setdefault("SIDECAR_KEY_FILE", key_file)
+        if wire:
+            # "libp2p" = real wire protocols (sidecar_libp2p.py); default
+            # is the bespoke-frame transport
+            env["SIDECAR_WIRE"] = wire
         self._proc = await asyncio.create_subprocess_exec(
             sys.executable,
             "-m",
@@ -184,7 +186,11 @@ class Port:
             # second listener in the sidecar, and a failed handshake tears
             # the whole Port down anyway (the except below)
             result = await self._command(cmd, retries=0)
-            self.listen_port = int(result.payload.decode())  # "<port>"
+            # payload: "<port>" (bespoke wire) or "<port> <enr>" (libp2p
+            # wire; the ENR is empty while discovery is off)
+            parts = result.payload.decode().split(None, 1)
+            self.listen_port = int(parts[0])
+            self.enr = parts[1] if len(parts) > 1 else None
             ident = port_pb2.Command()
             ident.get_node_identity.SetInParent()
             self.node_id = (await self._command(ident, retries=0)).payload

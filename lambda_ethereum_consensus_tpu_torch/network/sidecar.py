@@ -26,11 +26,11 @@ the peer is disconnected — and decay toward zero each heartbeat.
 The p2p transport is deliberately contained behind this process boundary so a
 full libp2p implementation can replace it without touching the host runtime.
 
-Every connection runs the Noise XX handshake before its HELLO.  Two
-divergences from the JAX package: the sidecar never falls back to plaintext
+Every connection runs the Noise XX handshake before its HELLO.  One
+divergence from the JAX package: the sidecar never falls back to plaintext
 (without ``cryptography`` its ``init`` command fails, so ``Port.start``
-raises), and ``SIDECAR_WIRE=libp2p`` is refused until the libp2p sidecar is
-ported.
+raises).  ``SIDECAR_WIRE=libp2p`` runs ``sidecar_libp2p.main`` instead, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -838,10 +838,12 @@ async def _main() -> None:
 
 def main() -> None:
     if os.environ.get("SIDECAR_WIRE") == "libp2p":
-        raise SystemExit(
-            "sidecar: SIDECAR_WIRE=libp2p is not ported yet "
-            "(ROADMAP.md Queue 1 item 4)"
-        )
+        # real libp2p wire protocols (multistream/noise/yamux|mplex/meshsub)
+        # behind the same stdio contract — see sidecar_libp2p.py
+        from .sidecar_libp2p import main as libp2p_main
+
+        libp2p_main()
+        return
     try:
         asyncio.run(_main())
     except (KeyboardInterrupt, asyncio.IncompleteReadError, EOFError):

@@ -4,8 +4,9 @@ Flags extend the reference's single ``--checkpoint-sync`` option
 (ref: application.ex:12-14) with network/preset/db/api selection.
 
 The port's copy of the JAX package's ``node/__main__.py``.  Two flags
-differ: ``--wire`` defaults to ``bespoke`` (the port's only wire so far;
-``libp2p`` makes the node's start raise), and ``--device`` picks the
+differ: ``--wire`` defaults to ``bespoke`` (``libp2p`` runs the libp2p
+wire with discovery off, so ``--bootnodes`` takes ``host:port`` seeds
+only), and ``--device`` picks the
 node's device (default: the card, and the node raises where there is
 none; ``cpu`` runs the plain PyTorch versions).
 """
@@ -32,7 +33,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-sync", action="store_true", help="disable range sync")
     p.add_argument("--wire", default="bespoke", choices=["libp2p", "bespoke"],
                    help="p2p wire mode (default bespoke: the framed-protobuf "
-                        "transport; libp2p is not ported yet and raises)")
+                        "transport; libp2p: the real wire, discovery off)")
     p.add_argument("--attnets", default="0,1",
                    help="comma-separated attestation subnet ids to subscribe "
                         "(beacon_attestation_{i} topics)")

@@ -25,8 +25,9 @@ The port's copy of the JAX package's ``node/node.py``.  What differs:
   loop, after its whole teardown.  Wire errors (``faults.WireError``) and
   every other exception stay contained as in the JAX package.
 - **The wire.** ``NodeConfig.wire`` defaults to ``None``, the bespoke
-  sidecar: the port's ``Port.start`` raises for ``"libp2p"`` and takes no
-  ENR ``attnets``/``syncnets`` (``attnet_subnets`` is still validated).
+  sidecar; ``"libp2p"`` runs the libp2p sidecar with discovery off
+  (``host:port`` bootnodes only), and ``Port.start`` takes no ENR
+  ``attnets``/``syncnets`` (``attnet_subnets`` is still validated).
 - **Knobs.** ``GOSSIP_STATS_POLL_S`` is a class constant (the environment
   is not read).  ``NodeConfig`` has no ``port_wrapper`` and no
   ``ingest_scheduler`` (the node always drains through its ingest
@@ -143,13 +144,13 @@ class NodeConfig:
     genesis_state: BeaconState | None = None
     anchor_block: BeaconBlock | None = None
     enable_range_sync: bool = True
-    # None/"" = the bespoke-frame sidecar, the port's only wire so far;
-    # "libp2p" (real multistream/noise/yamux|mplex/meshsub + discv5) makes
-    # Port.start raise NotImplementedError until the port carries it
+    # None/"" = the bespoke-frame sidecar (the default until discovery is
+    # ported); "libp2p" = real multistream/noise/yamux|mplex/meshsub, with
+    # discovery off: host:port bootnodes only
     wire: str | None = None
     # attestation subnets to subscribe (beacon_attestation_{i} topics;
-    # ref: gossipsub.ex:16-34 scaffolds the 64-subnet set).  The bespoke
-    # wire advertises no ENR, so no attnets bitfield is written
+    # ref: gossipsub.ex:16-34 scaffolds the 64-subnet set).  Neither wire
+    # advertises an ENR here, so no attnets bitfield is written
     attnet_subnets: tuple[int, ...] = (0, 1)
     # warm the device paths for these drain shapes on a background thread
     # started with the device backend (node/warmup.py), so the first real
@@ -548,8 +549,8 @@ class BeaconNode:
             if not 0 <= i < 64:
                 # fail at startup, not inside the sidecar-restart loop
                 raise ValueError(f"attestation subnet id out of range: {i}")
-        # the bespoke wire advertises no ENR, so no attnets/syncnets ride
-        # along (the port's Port.start takes none)
+        # no ENR is advertised on either wire (discovery is not ported), so
+        # no attnets/syncnets ride along (the port's Port.start takes none)
         self.port = await Port.start(
             listen_addr=self.config.listen_addr,
             bootnodes=self.config.bootnodes,

@@ -60,7 +60,10 @@ def test_port_imports_without_jax_or_the_jax_package():
         "compression", "compression.snappy", "faults", "network", "network.gossip",
         "network.noise", "network.peerbook", "network.port", "network.proto",
         "network.proto.p2p_pb2", "network.proto.port_pb2", "network.reqresp",
-        "network.sidecar",
+        "network.sidecar", "network.sidecar_libp2p", "network.proto.gossipsub_pb2",
+        "network.libp2p", "network.libp2p.varint", "network.libp2p.multistream",
+        "network.libp2p.identity", "network.libp2p.noise_transport", "network.libp2p.mplex",
+        "network.libp2p.yamux", "network.libp2p.host", "network.libp2p.gossipsub",
         "witness.service", "witness.vector_commitment", "witness.verify",
         "slo", "api", "api.beacon_api", "api.checkpoint_sync", "api.engine", "api.harness",
     ):

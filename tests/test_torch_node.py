@@ -4,11 +4,13 @@ Every chain is minted by the JAX package (``chaos.fleet.make_chain``: the
 minimal preset, 64 keys, five blocks, a genesis time just in the past so the
 blocks and the next slot are inside the gossip window) and carried into the
 port through SSZ bytes.  Every port node runs on the plain PyTorch versions
-(``device="cpu"``) over the bespoke wire (``wire=None``); a JAX node on the
-same chain runs beside it where values are compared side by side.
+(``device="cpu"``) over the bespoke wire (``wire=None``), but where the
+libp2p wire is named; a JAX node on the same chain runs beside it where
+values are compared side by side.
 
-- ``test_two_nodes_sync_and_gossip[bespoke]``: the JAX package's
-  ``tests/integration/test_node.py`` flow on two port nodes (range sync, a
+- ``test_two_nodes_sync_and_gossip[bespoke|libp2p]``: the JAX package's
+  ``tests/integration/test_node.py`` flow on two port nodes over either
+  wire, node B's bootnode node A's ``host:port`` (range sync, a
   gossip block, a subnet attestation reaching fork choice, the highest
   stored slot, the HTTP API), each head the JAX-minted block's root, and
   the API's JSON bodies equal to a JAX node's on the same chain.
@@ -122,7 +124,7 @@ async def http_json(port: int, path: str):
 
 # ------------------------------------------------------------ the live flows
 
-@pytest.mark.parametrize("wire", [None], ids=["bespoke"])
+@pytest.mark.parametrize("wire", [None, "libp2p"], ids=["bespoke", "libp2p"])
 def test_two_nodes_sync_and_gossip(chain, tmp_path, wire):
     bundle, genesis, blocks = chain
     jspec, spec = bundle.spec, minimal_spec()
@@ -168,6 +170,11 @@ def test_two_nodes_sync_and_gossip(chain, tmp_path, wire):
                     node_a.pending.add_block(signed6)
                     assert await node_a.pending.process_once() == 1
                     digest = node_a.chain.fork_digest()
+                    if wire == "libp2p":
+                        # a subscribed gossipsub router publishes to its mesh
+                        for name in ("beacon_block", f"beacon_attestation_{att_subnet}"):
+                            await _meshed(node_a.port, node_b.port.node_id,
+                                          topic_name(digest, name))
                     await publish_ssz(node_a.port, topic_name(digest, "beacon_block"), signed6,
                                       spec)
                     for _ in range(200):
@@ -223,6 +230,16 @@ def test_two_nodes_sync_and_gossip(chain, tmp_path, wire):
         assert b"peers_connection_count" in metrics_body
 
     run(main())
+
+
+async def _meshed(port, peer_id: bytes, topic: str, limit_s: float = 20.0) -> None:
+    """Wait until ``port``'s sidecar has ``peer_id`` in its mesh for ``topic``."""
+    for _ in range(int(limit_s / 0.05)):
+        stats = await port.get_gossip_stats()
+        if peer_id.hex() in stats["mesh"].get(topic, ()):
+            return
+        await asyncio.sleep(0.05)
+    raise AssertionError(f"{peer_id.hex()[:16]} not in the mesh of {topic}: {stats['mesh']}")
 
 
 async def _api_bodies(port: int, root6: bytes) -> dict:

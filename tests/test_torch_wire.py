@@ -6,9 +6,9 @@ request and response-chunk framing.  Live: the cases of
 ``tests/unit/test_network_port.py`` over two port sidecars on loopback, a
 port sidecar paired with a JAX sidecar (gossip both ways and a blocks by
 range request each way: the wire-compatibility proof), the port's
-divergences (noise is never dropped, ``wire="libp2p"`` is refused), and the
-sidecar module importing with ``torch``, ``jax`` and the JAX package
-blocked.
+divergences (noise is never dropped; the libp2p wire runs with discovery
+off), and the sidecar module importing, and running its libp2p wire, with
+``torch``, ``jax`` and the JAX package blocked.
 """
 
 import asyncio
@@ -391,14 +391,69 @@ def test_key_file_keeps_the_identity(tmp_path):
 # --------------------------------------------------- the port's divergences
 
 def test_libp2p_wire_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        run(Port.start(wire="libp2p"))
+    """What the libp2p wire still refuses while discovery is not ported
+    (ROADMAP.md Queue 1 item 4b): an ``enr:`` bootnode is never dialed,
+    though a ``host:port`` bootnode beside it is; ``Port.enr`` stays
+    ``None``; and the sidecar's init names item 4b on stderr and answers
+    ``"<port> "`` with an empty ENR."""
+    import struct
+
+    from cryptography.hazmat.primitives.asymmetric import ec
+
+    from lambda_ethereum_consensus_tpu.network.discovery.enr import ENR
+
+    from lambda_ethereum_consensus_tpu_torch.network.libp2p import Libp2pHost
+
+    async def main():
+        accepted = []
+
+        async def count(reader, writer):
+            accepted.append(1)
+            writer.close()
+
+        trap = await asyncio.start_server(count, "127.0.0.1", 0)
+        trap_port = trap.sockets[0].getsockname()[1]
+        enr = ENR.create(ec.generate_private_key(ec.SECP256K1()), seq=1,
+                         ip=bytes([127, 0, 0, 1]), udp=trap_port, tcp=trap_port).to_text()
+        seed = Libp2pHost()  # the host:port bootnode
+        joined = asyncio.get_running_loop().create_future()
+
+        async def on_peer(peer_id, addr):
+            joined.done() or joined.set_result(peer_id.bytes)
+
+        seed.on_peer = on_peer
+        _, seed_port = await seed.listen()
+        port = None
+        try:
+            port = await Port.start(wire="libp2p", bootnodes=[enr, f"127.0.0.1:{seed_port}"])
+            await asyncio.wait_for(joined, 10)
+            await asyncio.sleep(0.2)  # the bootnodes are dialed together at init
+            return port.enr, len(accepted), joined.result(), port.node_id
+        finally:
+            if port is not None:
+                await port.close()
+            await seed.close()
+            trap.close()
+
+    enr, trapped, seen, joiner = run(main())
+    assert enr is None and trapped == 0 and seen == joiner
+
+    cmd = port_pb2.Command()
+    cmd.id = b"\x00" * 8
+    cmd.init.listen_addr = "127.0.0.1:0"
+    cmd.init.bootnodes.append("enr:-unused")
+    raw = cmd.SerializeToString()
     out = subprocess.run(
         [sys.executable, "-m", "lambda_ethereum_consensus_tpu_torch.network.sidecar"],
-        cwd=ROOT, env={"SIDECAR_WIRE": "libp2p", "PATH": ""}, input=b"",
-        capture_output=True, timeout=60,
+        cwd=ROOT, env={"SIDECAR_WIRE": "libp2p", "PATH": ""},
+        input=struct.pack(">I", len(raw)) + raw, capture_output=True, timeout=60,
     )
-    assert out.returncode != 0 and b"not ported" in out.stderr
+    assert out.returncode == 0, out.stderr
+    assert b"discv5 disabled" in out.stderr and b"item 4b" in out.stderr
+    (length,) = struct.unpack(">I", out.stdout[:4])
+    result = port_pb2.Notification.FromString(out.stdout[4:4 + length]).result
+    assert result.ok and result.payload.decode().endswith(" ")
+    assert int(result.payload.decode()) > 0
 
 
 def test_no_cryptography_fails_the_start(tmp_path, monkeypatch):
@@ -617,20 +672,31 @@ def test_port_sidecar_and_jax_sidecar_interoperate(monkeypatch):
 # ------------------------------------------------- the sidecar's imports
 
 _PROBE = """
-import sys
+import os, sys
 for name in ("torch", "jax", "jaxlib", "lambda_ethereum_consensus_tpu"):
     sys.modules[name] = None
 import lambda_ethereum_consensus_tpu_torch.network.sidecar as s
 assert s.Sidecar and s.main
-mods = sorted(m for m in sys.modules if m.startswith("lambda_ethereum_consensus_tpu_torch"))
-print(" ".join(mods))
+def mods():
+    return " ".join(sorted(m for m in sys.modules if m.startswith("lambda_ethereum_consensus_tpu_torch")))
+print(mods())
+os.environ["SIDECAR_WIRE"] = "libp2p"
+s.main()  # the libp2p sidecar: stdin is empty, so its command loop ends at once
+print(mods())
 """
 
 
 def test_sidecar_imports_without_torch_jax_or_the_jax_package():
+    """The sidecar imports, and its libp2p wire runs its command loop, with
+    ``torch``, ``jax`` and the JAX package blocked."""
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, input="")
     assert out.returncode == 0, out.stderr
-    loaded = set(out.stdout.split())
-    assert "lambda_ethereum_consensus_tpu_torch.network.gossip" not in loaded
-    assert "lambda_ethereum_consensus_tpu_torch.network.sidecar" in loaded
+    bespoke, libp2p = (set(line.split()) for line in out.stdout.splitlines())
+    prefix = "lambda_ethereum_consensus_tpu_torch.network."
+    for mods in (bespoke, libp2p):
+        assert prefix + "gossip" not in mods
+        assert prefix + "sidecar" in mods
+    assert prefix + "sidecar_libp2p" not in bespoke
+    assert {prefix + m for m in ("sidecar_libp2p", "libp2p.gossipsub", "libp2p.yamux",
+                                 "libp2p.noise_transport", "proto.gossipsub_pb2")} <= libp2p
